@@ -16,7 +16,10 @@ nothing of ``gravo_mg_tpu``.
 from .core import MultigridSolver
 from .enums import CycleType, Hierarchy, Sampling, Smoother, Weighting
 from .hierarchy.builder import build_hierarchy
-from .sparse import DiagEll, EllMatrix, Prolongation, ShuffleEll, spmv
+from .solver.min_quad import MinQuadWithFixedMG
+from .sparse import (
+    DiagEll, EllMatrix, Prolongation, ShuffleEll, ell_from_scipy, spmv,
+)
 
 __all__ = [
     "MultigridSolver",
@@ -29,6 +32,8 @@ __all__ = [
     "EllMatrix",
     "Prolongation",
     "ShuffleEll",
+    "ell_from_scipy",
     "spmv",
     "build_hierarchy",
+    "MinQuadWithFixedMG",
 ]

@@ -1,8 +1,9 @@
 """Public MultigridSolver facade.
 
 Counterpart of ``gravo_mg_tpu/core.py``: same constructor signature and
-defaults (plus ``device`` and ``diag_min_groups``), eager hierarchy build,
-``solve``/``direct_solve``/``residual``, hierarchy introspection getters,
+defaults (plus ``device`` and ``diag_min_groups``), eager hierarchy build
+(ours, SIG06 or ablation; SIG21 on request and by ``toggle_hierarchy``),
+``solve``/``direct_solve``/``cg_solve``/``residual``, hierarchy introspection getters,
 prolongation injection, and timing / convergence writers.  The solve runs
 on ``device``; asking for ``"cuda"`` without a GPU raises, and the solver
 never falls back to the CPU on its own.
@@ -11,7 +12,7 @@ never falls back to the CPU on its own.
 from __future__ import annotations
 
 import hashlib
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -20,7 +21,8 @@ import torch
 from .enums import Hierarchy, Sampling, Smoother, Weighting
 from .hierarchy.builder import Hierarchy as HierarchyData
 from .hierarchy.builder import HierarchyLevel, build_hierarchy
-from .solver.direct import direct_solve
+from .hierarchy.variants import build_hierarchy_ablation, build_hierarchy_sig06
+from .solver.direct import cg_solve, direct_solve
 from .solver.multigrid import MultigridSolveContext, SolverConfig
 from .sparse import make_prolongation
 from .utils.io import write_convergence_csv, write_timing_csv
@@ -32,13 +34,6 @@ def _pattern_key(lhs) -> str:
     h.update(np.ascontiguousarray(lhs.indptr).tobytes())
     h.update(np.ascontiguousarray(lhs.indices).tobytes())
     return h.hexdigest()
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to gravo_mg_tpu_torch yet (ROADMAP Queue 1: "
-        f"{item}); use gravo_mg_tpu for it"
-    )
 
 
 def _resolve_device(device) -> torch.device:
@@ -75,10 +70,6 @@ class MultigridSolver:
         ``device`` selects where the solve runs and ``diag_min_groups``
         the row-group count from which a level is planned as DiagEll.
         """
-        if sig06:
-            _not_ported("sig06 hierarchies", "variants.py/sig21.py hierarchies")
-        if ablation:
-            _not_ported("ablation hierarchies", "variants.py/sig21.py hierarchies")
         self.device = _resolve_device(device)
         self.pos = np.asarray(pos, dtype=np.float64)
         self.neigh = np.asarray(neigh, dtype=np.int32)
@@ -108,16 +99,31 @@ class MultigridSolver:
         self.seed = int(seed)
         self.diag_min_groups = int(diag_min_groups)
 
-        self.hierarchy = build_hierarchy(
-            self.pos, self.neigh,
-            ratio=self.ratio, lower_bound=self.lower_bound,
-            sampling_strategy=self.sampling_strategy,
-            weighting=self.weighting,
-            check_voronoi=self.check_voronoi, nested=self.nested,
-            normals=self.normals,
-            seed=self.seed, verbose=self.verbose, debug=self.debug,
-        )
+        if sig06:
+            self.hierarchy = build_hierarchy_sig06(
+                self.pos, self.neigh,
+                lower_bound=self.lower_bound, verbose=self.verbose,
+            )
+        elif ablation:
+            self.hierarchy = build_hierarchy_ablation(
+                self.pos, self.neigh,
+                ratio=self.ratio, lower_bound=self.lower_bound,
+                num_points=int(ablation_num_points),
+                random_points=bool(ablation_random),
+                nested=self.nested, seed=self.seed, verbose=self.verbose,
+            )
+        else:
+            self.hierarchy = build_hierarchy(
+                self.pos, self.neigh,
+                ratio=self.ratio, lower_bound=self.lower_bound,
+                sampling_strategy=self.sampling_strategy,
+                weighting=self.weighting,
+                check_voronoi=self.check_voronoi, nested=self.nested,
+                normals=self.normals,
+                seed=self.seed, verbose=self.verbose, debug=self.debug,
+            )
         self._hierarchy_ours = self.hierarchy
+        self._hierarchy_sig21: Optional[HierarchyData] = None
         self._contexts: dict = {}
         self._active_hierarchy = Hierarchy.OURS
         self.convergence: List[tuple] = []
@@ -126,16 +132,35 @@ class MultigridSolver:
     # ---- hierarchy management ---------------------------------------------
 
     def construct_sig21_hierarchy(self, faces, dec_type=1):
-        """Decimation-based comparison hierarchy (not ported yet)."""
-        _not_ported("construct_sig21_hierarchy", "variants.py/sig21.py hierarchies")
+        """Build the decimation-based (SIG21) comparison hierarchy
+        (reference ``constructSIG21Hierarchy``,
+        multigrid_solver.cpp:1488-1503); ``dec_type`` 0 qslim, 1 midpoint
+        (default), 2 vertex removal (SSP_decimate.h:22)."""
+        from .hierarchy.sig21 import build_sig21_hierarchy
+
+        self._hierarchy_sig21 = build_sig21_hierarchy(
+            self.pos, np.asarray(faces), dec_type=dec_type,
+            verbose=self.verbose,
+        )
+        # Reference parity: the build time lands in the solver's hierarchy
+        # timing (multigrid_solver.cpp:1502), so timing CSVs written while
+        # OURS is active carry the column too.
+        for h in (self._hierarchy_ours, self.hierarchy):
+            h.timing["sig21_hierarchy"] = self._hierarchy_sig21.timing[
+                "sig21_hierarchy"
+            ]
 
     def toggle_hierarchy(self, hierarchy_type):
-        """Switch between hierarchies (reference core.py:71-78); only OURS
-        exists in the port so far."""
+        """Switch between hierarchies (reference core.py:71-78)."""
         hierarchy_type = Hierarchy(hierarchy_type)
-        if hierarchy_type != Hierarchy.OURS:
-            _not_ported("SIG21 hierarchies", "variants.py/sig21.py hierarchies")
-        self.hierarchy = self._hierarchy_ours
+        if hierarchy_type == Hierarchy.OURS:
+            self.hierarchy = self._hierarchy_ours
+        elif hierarchy_type in (Hierarchy.SIG21, Hierarchy.SIG21BARY):
+            if self._hierarchy_sig21 is None:
+                raise AssertionError(
+                    "construct_sig21_hierarchy must be called first"
+                )
+            self.hierarchy = self._hierarchy_sig21
         self._active_hierarchy = hierarchy_type
         self._contexts.clear()
 
@@ -232,15 +257,22 @@ class MultigridSolver:
     def direct_solve(self, lhs, rhs, pardiso=False):
         """Host sparse direct solve (reference solverType 0/1).
 
-        ``pardiso`` is accepted for API parity; both use SuperLU here.
+        ``pardiso`` is accepted for API parity; both paths use the same
+        factorization here (CHOLMOD when importable, else SuperLU).
         """
         if not sp.issparse(lhs):
             lhs = sp.csr_matrix(lhs)
         return direct_solve(lhs, np.asarray(rhs), timing=self.solver_timing)
 
     def cg_solve(self, lhs, rhs, max_iter: int = 10000):
-        """Device conjugate-gradient solve (not ported yet)."""
-        _not_ported("cg_solve", "direct.cg_solve")
+        """Jacobi-preconditioned CG on the solver's device (reference
+        solverType 4); iterations and residual land in ``solver_timing``."""
+        if not sp.issparse(lhs):
+            lhs = sp.csr_matrix(lhs)
+        return cg_solve(
+            lhs, rhs, tol=self.tolerance, max_iter=max_iter, dtype=self.dtype,
+            device=self.device, timing=self.solver_timing,
+        )
 
     def residual(self, lhs, rhs, solution, type=2):
         """Residual in the given norm (reference core.cpp residual)."""

@@ -31,6 +31,22 @@ from .sampling import (
 )
 
 
+def _avg_edge_length(pos: np.ndarray, neigh: np.ndarray) -> float:
+    """Average length of valid (non-padded, non-degenerate) edges, in f32
+    as the reference computes it on the device (the comparison
+    hierarchies' radius rule; ``computeAverageEdgeLength``,
+    multigrid_solver.cpp:695-711).  The f32 lengths are summed exactly in
+    f64 and the sum rounded once, which the device's f32 reduction
+    approximates to a few ulps."""
+    p = np.asarray(pos, dtype=np.float32)
+    safe = np.maximum(neigh, 0)
+    diff = p[safe] - p[:, None, :]
+    d = np.sqrt((diff * diff).sum(axis=-1))
+    ok = (neigh >= 0) & (d > 0)
+    total = np.float32(d[ok].sum(dtype=np.float64))
+    return float(total / np.float32(max(int(ok.sum()), 1)))
+
+
 @dataclasses.dataclass
 class HierarchyLevel:
     """One coarsening step (level k -> k+1) plus introspection data."""

@@ -34,16 +34,33 @@ def _build():
     if missing:
         raise RuntimeError(f"native sources not found: {missing}")
     _BUILD.mkdir(parents=True, exist_ok=True)
-    # Build under a per-process name and rename: concurrent test workers
+    # Build under per-process names and rename: concurrent test workers
     # may build at once, and a reader must never map a half-written file.
-    tmp = _BUILD / f".{_SO.name}.{os.getpid()}"
-    cmd = ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17",
-           *[str(s) for s in _SRCS], "-o", str(tmp)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"native build failed ({' '.join(cmd)}):\n{res.stderr[-4000:]}"
-        )
+    # One compiler per source, all started together, then one link.
+    tag = str(os.getpid())
+    objs = [_BUILD / f".{s.stem}.{tag}.o" for s in _SRCS]
+    tmp = _BUILD / f".{_SO.name}.{tag}"
+    flags = ["-O3", "-fopenmp", "-fPIC", "-std=c++17"]
+    cmds = [["g++", *flags, "-c", str(s), "-o", str(o)]
+            for s, o in zip(_SRCS, objs)]
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        results = [(c, p.communicate(timeout=600)[0], p.returncode)
+                   for c, p in zip(cmds, procs)]
+        link = ["g++", "-fopenmp", "-shared", *map(str, objs), "-o", str(tmp)]
+        if all(rc == 0 for _, _, rc in results):
+            res = subprocess.run(link, capture_output=True, text=True, timeout=300)
+            results.append((link, res.stdout + res.stderr, res.returncode))
+        for cmd, out, rc in results:
+            if rc != 0:
+                raise RuntimeError(
+                    f"native build failed ({' '.join(cmd)}):\n{out[-4000:]}"
+                )
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, _SO)
 
 
@@ -102,6 +119,13 @@ def get_lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.ssp_decimate.restype = ctypes.c_int64
+        lib.ssp_decimate.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         _lib = lib
         return lib
@@ -239,6 +263,43 @@ def fps_graph_native(neigh: np.ndarray, dist: np.ndarray, target: int,
         np.int32(start), samples.ctypes.data,
     )
     return samples[:m].copy()
+
+
+def ssp_decimate_native(V: np.ndarray, F: np.ndarray, target_nv: int,
+                        dec_type: int):
+    """Intrinsic-prolongation edge-collapse decimation (ssp_native.cpp).
+
+    Returns ``(Vc, Fc, P_cols (nv,3) int64, P_w (nv,3) f64, alive bool)``:
+    the coarse mesh plus per-fine-vertex coarse triangle corners and
+    barycentric weights from the joint-LSCM collapse replay.  Raises on an
+    empty mesh.
+    """
+    lib = get_lib()
+    V = np.ascontiguousarray(V, dtype=np.float64)
+    F = np.ascontiguousarray(F, dtype=np.int64)
+    if V.ndim != 2 or V.shape[1] != 3 or F.ndim != 2 or F.shape[1] != 3:
+        raise ValueError(f"ssp_decimate: V and F must be (n, 3), got "
+                         f"{V.shape} and {F.shape}")
+    nv, nf = V.shape[0], F.shape[0]
+    if nf and (F.min() < 0 or F.max() >= nv):
+        raise ValueError("ssp_decimate: face index out of range")
+    Vc = np.empty((nv, 3), np.float64)
+    Fc = np.empty((max(nf, 1), 3), np.int64)
+    nfc = np.zeros(1, np.int64)
+    P_cols = np.empty((nv, 3), np.int64)
+    P_w = np.empty((nv, 3), np.float64)
+    alive = np.empty(nv, np.int8)
+    nc = lib.ssp_decimate(
+        V.ctypes.data, nv, F.ctypes.data, nf, int(target_nv), int(dec_type),
+        Vc.ctypes.data, Fc.ctypes.data, nfc.ctypes.data,
+        P_cols.ctypes.data, P_w.ctypes.data, alive.ctypes.data,
+    )
+    if nc <= 0:
+        raise ValueError(f"ssp_decimate: empty mesh ({nv} vertices, {nf} faces)")
+    return (
+        Vc[:nc].copy(), Fc[: int(nfc[0])].copy(), P_cols, P_w,
+        alive.astype(bool),
+    )
 
 
 def prolongation_weights_cpp(fine_pos, labels, coarse_pos, coarse_neigh,

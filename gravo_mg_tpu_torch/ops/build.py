@@ -1,7 +1,7 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, ``gravo_mg_tpu_torch/_build/libgravomg_cuda.so``,
+nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
+in parallel) into one shared library with a plain C interface, ``gravo_mg_tpu_torch/_build/libgravomg_cuda.so``,
 at first CUDA use and again whenever a ``.cu`` or ``.cuh`` source is newer
 than the library.  The library is loaded with ctypes: every pointer and
 the stream go over as ``c_void_p``, sizes as ``c_int64``, and each entry
@@ -62,19 +62,37 @@ def _stale() -> bool:
 
 
 def build_library() -> None:
-    """Compile every ``csrc/*.cu`` into the library, unconditionally."""
+    """Compile every ``csrc/*.cu`` into the library, unconditionally: one
+    nvcc per source, all started together, then one link."""
     global build_log
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIBRARY.name}.{os.getpid()}"
-    cmd = [
-        _nvcc(), "-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        *[str(p) for p in cu], "-o", str(tmp),
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    objs = [BUILD_DIR / f".{p.stem}.{tag}.o" for p in cu]
+    cmds = [
+        [nvcc, "-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17",
+         "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", str(p),
+         "-o", str(o)]
+        for p, o in zip(cu, objs)
     ]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_log = " ".join(cmd) + "\n" + res.stdout + res.stderr
-    if res.returncode != 0:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs, failed = [], False
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate(timeout=900)
+        logs.append(" ".join(cmd) + "\n" + out)
+        failed |= proc.returncode != 0
+    tmp = BUILD_DIR / f".{LIBRARY.name}.{tag}"
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+        res = subprocess.run(link, capture_output=True, text=True, timeout=300)
+        logs.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        failed = res.returncode != 0
+    for o in objs:
+        o.unlink(missing_ok=True)
+    build_log = "\n".join(logs)
+    if failed:
         raise RuntimeError(f"nvcc build failed:\n{build_log[-6000:]}")
     os.replace(tmp, LIBRARY)
 

@@ -157,19 +157,43 @@ def cycle_step(cfg: SolverConfig, levels, coarse, b, x):
     return _cycle(cfg, levels, coarse, b, x, 0, cfg.cycle_type)
 
 
-def deflation_alpha(row_sums: np.ndarray, rhs2: np.ndarray) -> np.ndarray:
+# Row sums below DEFLATION_FLOOR * n * eps64 * mean|diag A| in total are
+# assembly roundoff, whatever their signs.
+DEFLATION_FLOOR = 16.0
+
+
+def deflation_alpha(row_sums: np.ndarray, rhs2: np.ndarray,
+                    diag_scale: Optional[float] = None) -> np.ndarray:
     """Exact rank-1 constant-mode deflation coefficients (f64, (d,)).
 
-    Deflate iff the row-sum vector is sign-coherent:
-    ``|sum(row_sums)| > 0.1 * sum(|row_sums|)``.  A genuine near-null
-    regularization (``eta * M @ 1``) passes at any mesh scale, while pure
-    assembly roundoff (random signs) is rejected.
+    Deflate iff the row-sum vector is sign-coherent,
+    ``|sum(row_sums)| > 0.1 * sum(|row_sums|)``, and, when the matrix
+    scale ``diag_scale`` (mean |diag A|) is given, above roundoff:
+    ``sum(|row_sums|) > DEFLATION_FLOOR * n * eps64 * diag_scale``.  A
+    genuine near-null regularization (``eta * M @ 1``) passes both at any
+    mesh scale.  Random-sign assembly roundoff fails the first gate, and
+    roundoff of one sign (a singular operator off by a few ulps per row,
+    where alpha would be astronomically large) fails the second.
     """
     denom = float(row_sums.sum())
     abs_sum = float(np.abs(row_sums).sum())
-    if abs_sum > 0.0 and abs(denom) > 0.1 * abs_sum:
+    floor = 0.0
+    if diag_scale is not None:
+        floor = (DEFLATION_FLOOR * row_sums.shape[0]
+                 * np.finfo(np.float64).eps * float(diag_scale))
+    if abs_sum > floor and abs(denom) > 0.1 * abs_sum:
         return np.asarray(rhs2.sum(axis=0) / denom, dtype=np.float64)
     return np.zeros(rhs2.shape[1])
+
+
+def _drop_zeros(U_csr):
+    """U without its explicit zero weights (in place).  The comparison
+    hierarchies pad their fixed-width rows with (column 0, weight 0), which
+    would make row 0 of U^T (and row/column 0 of the Galerkin chain) dense:
+    a shuffle layout padded thousands of times over, so the transfers would
+    leave the SpMV kernels.  The operators' values are unchanged."""
+    U_csr.eliminate_zeros()
+    return U_csr
 
 
 def galerkin_chain_scipy(lhs_csr, U_csr_list) -> list:
@@ -301,7 +325,7 @@ class MultigridSolveContext:
 
         # --- pattern discovery: f64 scipy Galerkin chain ------------------
         t0 = time.perf_counter()
-        self.U_csr = [lvl.U.to_scipy() for lvl in hierarchy.levels]
+        self.U_csr = [_drop_zeros(lvl.U.to_scipy()) for lvl in hierarchy.levels]
         self.timing["setup_u_host"] = (time.perf_counter() - t0) * 1000
         t1 = time.perf_counter()
         chain = galerkin_chain_scipy(self.lhs_csr, self.U_csr)
@@ -485,9 +509,9 @@ class MultigridSolveContext:
             self.lhs_csr.sum(axis=1), dtype=np.float64
         ).ravel()
         n = self.lhs_csr.shape[0]
-        scale = float(np.abs(self.lhs_csr.diagonal()).mean())
+        self.diag_scale = float(np.abs(self.lhs_csr.diagonal()).mean())
         self.near_singular = (
-            abs(float(self.row_sums.sum())) < 1e-6 * scale * n
+            abs(float(self.row_sums.sum())) < 1e-6 * self.diag_scale * n
         )
         self.cfg = dataclasses.replace(
             self.cfg, coarse_null_project=self.near_singular
@@ -541,7 +565,7 @@ class MultigridSolveContext:
         rhs = np.asarray(rhs, dtype=np.float64)
         squeeze = rhs.ndim == 1
         rhs2 = rhs[:, None] if squeeze else rhs
-        alpha = deflation_alpha(self.row_sums, rhs2)  # (d,) f64
+        alpha = deflation_alpha(self.row_sums, rhs2, self.diag_scale)  # (d,) f64
         # One compute-dtype upload of the raw rhs; the f64 deflation
         # ``b = rhs - alpha * (A @ 1)`` runs on the device.
         rhs_dev = torch.from_numpy(

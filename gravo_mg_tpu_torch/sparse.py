@@ -55,6 +55,22 @@ class EllMatrix:
         )
 
 
+def ell_from_scipy(A, dtype=torch.float32) -> EllMatrix:
+    """Convert any scipy sparse matrix to transposed ELL (host tensors)."""
+    A = A.tocsr()
+    A.sum_duplicates()
+    n, m = A.shape
+    degree = np.diff(A.indptr)
+    k = max(int(degree.max()) if n else 1, 1)
+    indices = np.zeros((k, n), dtype=np.int64)
+    values = np.zeros((k, n), dtype=numpy_dtype(dtype))
+    slot = np.arange(A.indices.shape[0]) - np.repeat(A.indptr[:-1], degree)
+    row_ids = np.repeat(np.arange(n), degree)
+    indices[slot, row_ids] = A.indices
+    values[slot, row_ids] = A.data
+    return EllMatrix(_tensor(indices), _tensor(values), m)
+
+
 def ell_spmv(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     vals = A.values if x.ndim == 1 else A.values[..., None]
     return (vals * x[A.indices]).sum(0)

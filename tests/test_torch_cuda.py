@@ -156,3 +156,83 @@ def test_solve_on_cuda_goes_through_both_kernels(cuda):
     assert res <= 1e-4
     assert n_shuffle > 0 and n_diag > 0
     assert runs["cpu"][2:] == (0, 0)
+
+
+def _torus(nu, nv):
+    from gravo_mg_tpu_torch.utils.laplacian import mass_barycentric
+    from gravo_mg_tpu_torch.utils.meshgen import torus_mesh
+
+    V, F = torus_mesh(nu, nv)
+    return V, F, cotan_laplacian(V, F), mass_barycentric(V, F), neighbors_from_faces(F)
+
+
+@pytest.mark.cuda
+def test_cg_on_cuda_launches_shuffle_and_meets_tol(cuda):
+    from gravo_mg_tpu_torch.solver.direct import cg_solve
+
+    V, F, S, M, neigh = _torus(256, 256)          # 65536 vertices
+    lhs = (M + 1e-3 * S).tocsr()
+    rhs = M @ np.random.default_rng(42).standard_normal((len(V), 3))
+    smod.launches = 0
+    timing = {}
+    x = cg_solve(lhs, rhs, tol=1e-4, max_iter=2000, device=cuda, timing=timing)
+    assert smod.launches >= timing["cg_iterations"] > 0
+    assert np.linalg.norm(lhs @ x - rhs) <= 1.1e-4 * np.linalg.norm(rhs)
+
+
+@pytest.mark.cuda
+def test_min_quad_on_cuda_matches_cpu(cuda):
+    from gravo_mg_tpu_torch import MinQuadWithFixedMG
+
+    V, F, S, M, neigh = _torus(128, 128)
+    n = len(V)
+    rng = np.random.default_rng(3)
+    known = rng.choice(n, size=n // 20, replace=False)
+    Y = rng.standard_normal(known.size)
+    lhs = (S + 1e-3 * M).tocsr()
+    B = M @ rng.standard_normal(n)
+    out = {}
+    for device in ("cpu", "cuda"):
+        solver = MultigridSolver(V, neigh, M, lower_bound=200, device=device,
+                                 diag_min_groups=16)
+        smod.launches = dmod.launches = 0
+        mq = MinQuadWithFixedMG(solver, lhs, known, tol=1e-4, max_iter=20,
+                                criteria=2)
+        out[device] = mq.solve(B, Y)[0], smod.launches, dmod.launches
+    x_cpu, x_gpu = out["cpu"][0], out["cuda"][0]
+    assert np.array_equal(x_gpu[known], Y)
+    assert np.linalg.norm(x_gpu - x_cpu) <= 1e-4 * np.linalg.norm(x_cpu)
+    assert out["cuda"][1] > 0 and out["cuda"][2] > 0
+    assert out["cpu"][1:] == (0, 0)
+
+
+@pytest.mark.cuda
+def test_sig21_solve_on_cuda_goes_through_both_kernels(cuda):
+    from gravo_mg_tpu_torch import Hierarchy
+
+    V, F = icosphere(5, bump=0.1)
+    S, M, neigh = cotan_laplacian(V, F), mass_voronoi(V, F), neighbors_from_faces(F)
+    lhs = (M + 1e-3 * S).tocsr()
+    rhs = M @ V
+    solver = MultigridSolver(V, neigh, M, lower_bound=300, device=cuda,
+                             diag_min_groups=16)
+    solver.construct_sig21_hierarchy(F)
+    solver.toggle_hierarchy(Hierarchy.SIG21)
+    smod.launches = dmod.launches = 0
+    x = solver.solve(lhs, rhs)
+    assert smod.launches > 0 and dmod.launches > 0
+    assert solver.residual(lhs, rhs, x) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_f64_smoothing_to_1e12_on_cuda(cuda):
+    V, F, S, M, neigh = _torus(224, 224)          # 50176 vertices
+    solver = MultigridSolver(V, neigh, M, lower_bound=500, tolerance=1e-12,
+                             dtype=torch.float64, device=cuda)
+    lhs = (M + 1e-3 * S).tocsr()
+    rhs = M @ np.random.default_rng(0).standard_normal(len(V))
+    smod.launches = 0
+    x = solver.solve(lhs, rhs)
+    assert smod.launches > 0
+    assert solver.residual(lhs, rhs, x) < 1e-12
+    assert solver.solver_timing["iterations"] <= 40

@@ -115,16 +115,6 @@ def test_cuda_device_raises_without_gpu(sphere_mesh, monkeypatch):
         MultigridSolver(m["V"], m["neigh"], m["M"])   # device="cuda" default
 
 
-def test_unported_entry_points_raise(sphere_mesh):
-    m = sphere_mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultigridSolver(m["V"], m["neigh"], m["M"], sig06=True, device="cpu")
-    port = MultigridSolver(m["V"], m["neigh"], m["M"], lower_bound=100,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.cg_solve(m["S"], m["M"] @ m["V"])
-
-
 @pytest.mark.parametrize("poisson", [False, True])
 def test_zero_level_hierarchy_and_warm_start(poisson):
     """A mesh at/below lower_bound has no levels: one refined coarse
