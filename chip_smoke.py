@@ -11,6 +11,7 @@ phase, counted from 0; any failure exits non-zero before the last line):
 2. kernels: each kernel against its plain PyTorch version on the card at
    real operator shapes, d = 1 and 3, f32 (plus one f64 check each), with
    times: the 1M Poisson case's A0 (DiagEll), U0^T, A1 and M (ShuffleEll),
+   the halo phase's stacked interior A0 (4 partitions, one ShuffleEll),
    CG's operator (the whole 1M ``M + 1e-3 S`` as ShuffleEll) and the finest
    U0^T of the 262k SIG21 hierarchy;
 3. smoothing: the 10k icosphere(5, bump=0.15) smoothing solve
@@ -19,6 +20,10 @@ phase, counted from 0; any failure exits non-zero before the last line):
 4. poisson: the 1M-vertex torus Poisson solve (1e-6 M + S, rhs M @ randn,
    seed 42, tol 1e-4, criterion 2, lower_bound 1000) through the facade
    in mode="fused";
+   halo: the same system on phase poisson's context over 4 row partitions
+   (``parallel.halo.HaloContext``) held by one NCCL rank on this card
+   (one-rank process group, ``file://`` rendezvous): cold and warm solves
+   against phase poisson's solution, one warm solve under torch.profiler;
 5. cg: ``solver.cg_solve`` on the same torus, lhs M + 1e-3 S, rhs
    M @ randn (seed 42), tol 1e-4, max_iter 2000;
 6. minquad: MinQuadWithFixedMG on that solver, lhs S + 1e-3 M, 5% of the
@@ -33,14 +38,18 @@ phase, counted from 0; any failure exits non-zero before the last line):
 
 Every solve's residual is recomputed on the host in f64.  The
 second-to-last line is a JSON object with one entry per kernel (launches
-summed over phases 3-8); the last line is ``{"ok": true, "device": {...}}``.
+summed over the solve phases); the last line is ``{"ok": true, "device": {...}}``.
 The script needs CUDA and the rest of the repository; without either it
 exits non-zero.
 """
 
+import atexit
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -112,6 +121,47 @@ def layouts(ctx):
     return f"A:{a} U:{u}"
 
 
+def trace_summary(prof, label):
+    """Kernel events of a torch.profiler run: count, time, the
+    shuffle_spmv share of the compute kernels (NCCL kernels apart), the
+    device idle share over the span, and the largest kernels by time.
+    ``label`` is the run's ``record_function`` range, which the trace also
+    carries on the device timeline; it is not a kernel."""
+    dev = [e for e in prof.events()
+           if getattr(e.device_type, "name", "") == "CUDA" and e.name != label]
+    if not dev:
+        return "no device events in the trace: not measured"
+    iv = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    span = max(max(b for _, b in iv) - iv[0][0], 1e-9)
+    busy, cur_a, cur_b = 0.0, iv[0][0], iv[0][1]
+    for a, b in iv[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    kern = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    nccl = [e for e in kern if "nccl" in e.name.lower()]
+    comp = [e for e in kern if "nccl" not in e.name.lower()]
+
+    def us(evs):
+        return sum(e.time_range.end - e.time_range.start for e in evs)
+
+    by_name: dict = {}
+    for e in comp:
+        key = e.name.replace("void ", "")[:56]
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    comp_us = us(comp)
+    shuffle_us = us(e for e in comp if "shuffle_spmv_kernel" in e.name)
+    return (f"{len(kern)} kernel events ({len(nccl)} NCCL, {us(nccl) / 1000:.3f} ms); "
+            f"compute kernel time {comp_us / 1000:.3f} ms, shuffle_spmv share "
+            f"{shuffle_us / max(comp_us, 1e-9):.3f}; device busy {busy / 1000:.3f} "
+            f"of {span / 1000:.3f} ms (idle share {1 - busy / span:.3f}); top: "
+            + ", ".join(f"{k} {v / 1000:.3f} ms" for k, v in top))
+
+
 def rel_residual_f64(A, x, b):
     return float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
 
@@ -130,6 +180,9 @@ def main():
     from gravo_mg_tpu_torch.ops import build
     from gravo_mg_tpu_torch.ops import diag_spmv as dmod
     from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
+    from gravo_mg_tpu_torch.parallel.halo import (
+        PartitionedOp, _build_dist_op, make_solver_mesh, partition_rows,
+    )
     from gravo_mg_tpu_torch.solver.direct import cg_operator
     from gravo_mg_tpu_torch.sparse import DiagEll, ShuffleEll, shuffle_from_scipy
     from gravo_mg_tpu_torch.utils.laplacian import (
@@ -157,6 +210,7 @@ def main():
 
     # ---- 1. build ----------------------------------------------------------
     try:
+        t_wall = time.perf_counter()
         t0 = time.perf_counter()
 
         def timed(fn):
@@ -176,11 +230,13 @@ def main():
             f"-> {build.LIBRARY.name}")
         for ln in ptxas:
             log(f"  {ln}")
+        log(f"build: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001 — report and exit non-zero
         fail("build", exc)
 
     # ---- 1M system, hierarchy and setup (operators for phases 2 and 4-7) --
     try:
+        t_wall = time.perf_counter()
         t0 = time.perf_counter()
         V, F = torus_mesh(*TORUS_1M)
         n = V.shape[0]
@@ -199,14 +255,22 @@ def main():
         torch.cuda.synchronize()
         t_setup = time.perf_counter() - t0
         A_cg = cg_operator(lhs_cg).to(dev)
+        # Phase halo's stacked interior A0 (4 partitions, one ShuffleEll),
+        # for phase kernels only; phase halo builds its own context.
+        nl0, P0 = partition_rows(n, 4)
+        A0_stacked = PartitionedOp(
+            _build_dist_op(ctx.chain_csr[0], 4, nl0, nl0, ctx.dtype),
+            make_solver_mesh(4, "cuda"), P0, P0, ctx.dtype).A
         log(f"1M system: n={n} nnz={lhs.nnz} mesh+operators {t_mesh:.2f} s, "
             f"hierarchy {t_hier:.2f} s, setup {t_setup:.2f} s; "
             f"CG operator {type(A_cg).__name__}")
+        log(f"poisson-setup: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("poisson-setup", exc)
 
     # ---- 262k baselines: mesh, the four hierarchies and their contexts -----
     try:
+        t_wall = time.perf_counter()
         t0 = time.perf_counter()
         Vb, Fb = torus_mesh(*TORUS_262K, r=0.5)
         Vb = normalize_area(Vb, Fb)
@@ -240,6 +304,7 @@ def main():
         sig21_U0T = shuffle_from_scipy(
             baselines["sig21"]["ctx"].U_csr[0].T.tocsr()
         ).to(dev)
+        log(f"baselines-setup: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("baselines-setup", exc)
 
@@ -251,6 +316,7 @@ def main():
         ("M", ctx.M),
         ("CG M+1e-3S", A_cg),
         ("SIG21-262k U0T", sig21_U0T),
+        ("halo A0 interior, 4 partitions stacked", A0_stacked),
     ]
     kinfo = {
         "diag_spmv": {"err": 0.0, "ms": None, "plain_ms": None},
@@ -258,6 +324,7 @@ def main():
     }
     rng = np.random.default_rng(0)
     try:
+        t_wall = time.perf_counter()
         for label, A in cases:
             kname = "diag_spmv" if isinstance(A, DiagEll) else "shuffle_spmv"
             if label == "A0" and kname != "diag_spmv":
@@ -305,13 +372,15 @@ def main():
             if not rel <= TOL_F64:
                 raise AssertionError(f"{kname} {label} f64 disagrees")
             del x, v64, y, ref
-        del sig21_U0T
+        del cases, A, sig21_U0T, A0_stacked
         torch.cuda.empty_cache()
+        log(f"kernels: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("kernels", exc)
 
     # ---- 3. 10k smoothing solve ---------------------------------------------
     try:
+        t_wall = time.perf_counter()
         V2, F2 = icosphere(5, bump=0.15)
         S2, M2 = cotan_laplacian(V2, F2), mass_voronoi(V2, F2)
         s2 = MultigridSolver(V2, neighbors_from_faces(F2), M2, lower_bound=300,
@@ -332,11 +401,13 @@ def main():
             f"launches {launched} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("10k smoothing solve failed its checks")
+        log(f"smoothing: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("smoothing", exc)
 
     # ---- 4. the 1M Poisson solve (main path) ----------------------------------
     try:
+        t_wall = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         counts.reset()
         x = solver.solve(lhs, rhs, mode="fused")
@@ -362,11 +433,97 @@ def main():
         log(f"phase poisson: launches {launches} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("1M Poisson solve failed its checks")
+        x_single, cycles_single = x, cycles
+        log(f"poisson: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("poisson", exc)
 
+    # ---- halo: the 1M Poisson solve over 4 row partitions -------------------
+    halo_dir = tempfile.mkdtemp(prefix="gravo_halo_")
+    atexit.register(shutil.rmtree, halo_dir, True)
+    try:
+        t_wall = time.perf_counter()
+        import torch.distributed as dist
+        from gravo_mg_tpu_torch.parallel import multihost
+        from gravo_mg_tpu_torch.parallel.halo import HaloContext
+        from gravo_mg_tpu_torch.utils.profiler import torch_trace
+
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # no network
+        multihost.initialize(
+            init_method=f"file://{os.path.join(halo_dir, 'rendezvous')}",
+            world_size=1, rank=0, backend="nccl")
+        hmesh = multihost.global_row_mesh(4, "cuda")
+        t0 = time.perf_counter()
+        hctx = HaloContext(ctx, hmesh)
+        torch.cuda.synchronize()
+        t_hbuild = time.perf_counter() - t0
+        log(f"phase halo: backend {dist.get_backend()} world "
+            f"{dist.get_world_size()} partitions {hmesh.n_partitions}")
+        plan = hctx.plan_info()
+        for k, lv in enumerate(plan):
+            log(f"phase halo: level {k} nloc {lv['nloc']} " + " ".join(
+                f"{p}: halo {lv[p]['halo']} shifts {lv[p]['shifts']} "
+                f"KP {lv[p]['kp']} KPH {lv[p]['kph']} (halo part "
+                f"{lv[p]['halo_nnz']} nnz in {lv[p]['halo_lanes']} lanes);"
+                for p in ("A", "U", "UT")))
+        kw = dict(tol=1e-4, criteria=2, max_iter=50)
+        counts.reset()
+        t0 = time.perf_counter()
+        xh, hcycles, hres_dev = hctx.solve(rhs, **kw)
+        cold_s = time.perf_counter() - t0
+        launches = counts.read()
+        cold_ms = hctx.timing["cycles_ms"]
+        warm = []
+        for _ in range(3):
+            hctx.solve(rhs, **kw)
+            warm.append(hctx.timing["cycles_ms"])
+        hres = solver.residual(lhs, rhs, xh)
+        rel = float(np.abs(xh - x_single).max() / np.abs(x_single).max())
+        # The same without the deflated constant, which dominates max|x|:
+        # a solve that returned only the constant would still pass `rel`.
+        xs0, xh0 = x_single - x_single.mean(), xh - xh.mean()
+        rel0 = float(np.abs(xh0 - xs0).max() / np.abs(xs0).max())
+        with torch_trace(halo_dir, name="halo_warm_solve") as prof:
+            hctx.solve(rhs, **kw)
+        traced_ms = hctx.timing["cycles_ms"]
+        trace_msg = trace_summary(prof, "halo_warm_solve")
+        halo0 = plan[0]["A"]["halo"]
+        checks = {
+            "residual <= 1e-4": hres <= 1e-4,
+            "cycles within 1 of poisson": abs(hcycles - cycles_single) <= 1,
+            "rel diff < 1e-4": rel < 1e-4,
+            "mean-free rel diff < 1e-3": rel0 < 1e-3,
+            "level-0 halo < 5% of nloc": halo0 < 0.05 * plan[0]["nloc"],
+            "shuffle_spmv launched": launches["shuffle_spmv"] > 0,
+            "no diag_spmv": launches["diag_spmv"] == 0,
+            "finite": bool(np.isfinite(xh).all()) and xh.shape == rhs.shape,
+        }
+        ok = all(checks.values())
+        log(f"phase halo: partitions {hmesh.n_partitions} on 1 NCCL rank, "
+            f"partition build {t_hbuild:.2f} s, cycles {hcycles} (poisson "
+            f"{cycles_single}) residual(host f64) {hres:.3e} device {hres_dev:.3e} "
+            f"max|x_halo - x_single|/max|x_single| {rel:.3e} (mean-free parts "
+            f"{rel0:.3e})")
+        log(f"phase halo: cold solve cycles {cold_ms:.2f} ms "
+            f"({cold_ms / max(hcycles, 1):.3f} ms/cycle, call {cold_s:.3f} s), "
+            f"warm {', '.join(f'{w:.2f}' for w in warm)} ms "
+            f"({min(warm) / max(hcycles, 1):.3f} ms/cycle); traced warm solve "
+            f"{traced_ms:.2f} ms: {trace_msg}")
+        log(f"phase halo: launches {launches} checks "
+            f"{[k for k, v in checks.items() if not v] or 'all passed'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("1M halo solve failed its checks")
+        dist.destroy_process_group()
+        del hctx, xh
+        torch.cuda.empty_cache()
+        log(f"halo: wall {time.perf_counter() - t_wall:.2f} s")
+    except Exception as exc:  # noqa: BLE001
+        fail("halo", exc)
+
     # ---- 5. device CG on the 1M torus ---------------------------------------
     try:
+        t_wall = time.perf_counter()
         rhs_cg = M @ np.random.default_rng(42).standard_normal(n)
         counts.reset()
         t0 = time.perf_counter()
@@ -386,11 +543,13 @@ def main():
             f"{t['cg_residual']:.3e} launches {launched} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("1M CG solve failed its checks")
+        log(f"cg: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("cg", exc)
 
     # ---- 6. MinQuadWithFixedMG on the 1M solver ------------------------------
     try:
+        t_wall = time.perf_counter()
         rng3 = np.random.default_rng(3)
         known = rng3.choice(n, size=n // 20, replace=False)
         Y = rng3.standard_normal(known.size)
@@ -421,6 +580,7 @@ def main():
         if not ok:
             raise AssertionError("1M MinQuad solve failed its checks")
         del mq
+        log(f"minquad: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("minquad", exc)
 
@@ -429,6 +589,7 @@ def main():
     # so f32 cannot represent a solution whose residual is below ~3.5e-4
     # (the residual floor grows with n; 1.05e-4 at 262k).
     try:
+        t_wall = time.perf_counter()
         t0 = time.perf_counter()
         flow = ConformalFlow(
             V, F, tau=1e-3,
@@ -477,11 +638,13 @@ def main():
         if not ok:
             raise AssertionError("1M conformal flow failed its checks")
         del flow, fs
+        log(f"flow: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("flow", exc)
 
     # ---- 8. baselines at 262k: OURS, SIG06, ablation, SIG21 ------------------
     try:
+        t_wall = time.perf_counter()
         ok = True
         for name, b in baselines.items():
             s = b["solver"]
@@ -501,6 +664,7 @@ def main():
             log(f"phase baselines: {name} {layouts(b['ctx'])}")
         if not ok:
             raise AssertionError("262k baselines failed their checks")
+        log(f"baselines: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("baselines", exc)
 

@@ -91,3 +91,16 @@ def levels_from_reference(levels, coarse_op, device="cpu"):
     )
     coarse = tuple(_t(a).to(device) for a in coarse_op)
     return out, coarse
+
+
+def dist_op_from_reference(op):
+    """A port ``parallel.halo.DistOp`` (host numpy) from a reference
+    DistOp: the stacked slot arrays and the exchange steps."""
+    from .parallel.halo import DistOp
+
+    steps = tuple((int(s), np.array(si), np.array(rp)) for s, si, rp in op.steps)
+    return DistOp(
+        np.array(op.q), np.array(op.r), np.array(op.v),
+        np.array(op.qh), np.array(op.rh), np.array(op.vh), steps,
+        int(op.rows_local), int(op.cols_local), int(op.halo), int(op.halo_pad),
+    )

@@ -123,6 +123,14 @@ def _coarse_solve(coarse, rc, null_project: bool = False):
     return e[:, 0] if one_d else e
 
 
+def _coarse_correction(cfg: SolverConfig, coarse, rc):
+    """``coarse`` is ``(Ainv, Ad)`` or a callable ``rc -> e`` (the halo
+    solver's replicated coarse solve)."""
+    if callable(coarse):
+        return coarse(rc)
+    return _coarse_solve(coarse, rc, cfg.coarse_null_project)
+
+
 def _cycle(cfg: SolverConfig, levels, coarse, b, x, k: int, kind: int):
     """Recursive cycle (kind: 0=V, 1=F, 2=W)."""
     ops = levels[k]
@@ -130,7 +138,7 @@ def _cycle(cfg: SolverConfig, levels, coarse, b, x, k: int, kind: int):
     r = b - spmv(ops.A, x)
     rc = ops.U.restrict(r)
     if k == cfg.num_levels - 1:
-        e = _coarse_solve(coarse, rc, cfg.coarse_null_project)
+        e = _coarse_correction(cfg, coarse, rc)
     else:
         e = _cycle(cfg, levels, coarse, rc, torch.zeros_like(rc), k + 1, kind)
     x = x + ops.U.prolong(e)
@@ -141,7 +149,7 @@ def _cycle(cfg: SolverConfig, levels, coarse, b, x, k: int, kind: int):
         r = b - spmv(ops.A, x)
         rc = ops.U.restrict(r)
         if k == cfg.num_levels - 1:
-            e = _coarse_solve(coarse, rc, cfg.coarse_null_project)
+            e = _coarse_correction(cfg, coarse, rc)
         else:
             kind2 = int(CycleType.V) if kind == int(CycleType.F) else kind
             e = _cycle(
@@ -449,6 +457,12 @@ class MultigridSolveContext:
         """Value-dependent half of setup: per-level layout values,
         diagonals, lambda_max, coarse inverse — host-computed, uploaded."""
         t0 = time.perf_counter()
+        # The host state below is kept for the halo partitioner
+        # (parallel/halo.py): the f64 chain, diagonals, spectral bounds and
+        # the coarse inverse.
+        self.chain_csr = chain
+        self._host_diag_inv = []
+        self.host_lam = []
         levels = []
         t_values = t_spec = 0.0
         npdt = numpy_dtype(self.dtype)
@@ -483,6 +497,8 @@ class MultigridSolveContext:
                     A.shape[0], A.shape[1],
                 )
             diag_inv = torch.from_numpy(diag_inv_np).to(self.device, self.dtype)
+            self._host_diag_inv.append(diag_inv_np)
+            self.host_lam.append(lam)
             # lam_max rounded to the compute dtype, as the reference stores it
             levels.append(LevelOps(
                 A_dev, diag_inv, float(np.asarray(lam, npdt)), self.transfers[k]
@@ -492,6 +508,7 @@ class MultigridSolveContext:
         self.levels = tuple(levels)
         t1 = time.perf_counter()
         Ainv, Ad = coarse_inverse_host(chain[-1], self.near_singular)
+        self._host_coarse_inv = (Ainv, Ad)
         self.coarse_op = (
             torch.from_numpy(Ainv).to(self.device, self.dtype),
             torch.from_numpy(Ad).to(self.device, self.dtype),

@@ -127,7 +127,11 @@ def _check_cols(A, x):
 
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for x of shape (N,) or (N, d), dispatched on the layout."""
+    """y = A @ x for x of shape (N,) or (N, d), dispatched on the layout.
+    A callable operator (the halo solver's row-partitioned operators,
+    ``parallel/halo.py``) is applied as ``A(x)``."""
+    if callable(A):
+        return A(x)
     _check_cols(A, x)
     if isinstance(A, ShuffleEll):
         return _shuffle_kernel(A.q, A.r, A.v, x, A.nrows)

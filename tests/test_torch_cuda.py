@@ -236,3 +236,63 @@ def test_f64_smoothing_to_1e12_on_cuda(cuda):
     assert smod.launches > 0
     assert solver.residual(lhs, rhs, x) < 1e-12
     assert solver.solver_timing["iterations"] <= 40
+
+
+@pytest.fixture(scope="module")
+def halo_torus():
+    V, F, S, M, neigh = _torus(128, 96)            # 12288 vertices
+    lhs = (M + 1e-3 * S).tocsr()
+    return V, M, neigh, lhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_halo_solve_on_cuda_matches_single_device(cuda, halo_torus, D, dtype, d):
+    """D virtual partitions on the card against the single-device solve on
+    the card: the same cycles (+-1), solutions within 1e-4 (f32) or 1e-9
+    (f64) of max|x|, and only the ShuffleEll kernel in the halo path."""
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext, make_solver_mesh
+
+    V, M, neigh, lhs = halo_torus
+    rhs = M @ np.random.default_rng(d).standard_normal((len(V), d))
+    rhs = rhs[:, 0] if d == 1 else rhs
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    solver = MultigridSolver(V, neigh, M, lower_bound=200, dtype=dtype,
+                             device=cuda, diag_min_groups=16)
+    ctx = solver._context(lhs)
+    x1, it1, _, _ = ctx.solve(rhs, tol=tol, max_iter=50)
+    hctx = HaloContext(ctx, make_solver_mesh(D, cuda))
+    smod.launches = dmod.launches = 0
+    x2, it2, res = hctx.solve(rhs, tol=tol, max_iter=50)
+    assert smod.launches > 0 and dmod.launches == 0
+    assert res <= tol and abs(it1 - it2) <= 1
+    rel = 1e-4 if dtype == torch.float32 else 1e-9
+    assert np.abs(x1 - x2).max() <= rel * np.abs(x1).max()
+    assert solver.residual(lhs, rhs, x2) <= 2 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_halo_stacked_apply_on_cuda_matches_plain(cuda, halo_torus, dtype):
+    """The stacked interior and halo ShuffleEll kernels (one launch each
+    for all four partitions) against the same apply through the plain
+    versions on the CPU (tests/test_torch_halo.py holds the stacked apply
+    equal to the per-partition applies)."""
+    from gravo_mg_tpu_torch.parallel import halo
+
+    V, M, neigh, lhs = halo_torus
+    D = 4
+    nl = -(-lhs.shape[0] // (128 * D)) * 128
+    P = -(-nl // 1024) * 1024
+    op = halo._build_dist_op(lhs, D, nl, nl, dtype)
+    stacked = halo.PartitionedOp(op, halo.make_solver_mesh(D, cuda), P, P, dtype)
+    x = _x(D * P, 3, dtype, 11, cuda)
+    x.view(D, P, 3)[:, nl:] = 0
+    smod.launches = 0
+    y = stacked(x)
+    assert smod.launches == 2
+    host = halo.PartitionedOp(op, halo.make_solver_mesh(D, "cpu"), P, P, dtype)
+    ref = host(x.cpu())
+    _close(y.cpu(), ref, dtype)
