@@ -6,20 +6,28 @@
 Phases (each prints its own lines, with the kernel launch counts of that
 phase, counted from 0; any failure exits non-zero before the last line):
 
-1. build: the native host library (g++) and both CUDA kernels (nvcc,
-   sm_90a) from the sources in this checkout, all compilers at once;
+1. build: the native host library (g++) and the three CUDA kernels
+   (nvcc, sm_90a) from the sources in this checkout, all compilers at once;
 2. kernels: each kernel against its plain PyTorch version on the card at
    real operator shapes, d = 1 and 3, f32 (plus one f64 check each), with
-   times: the 1M Poisson case's A0 (DiagEll), U0^T, A1 and M (ShuffleEll),
-   the halo phase's stacked interior A0 (4 partitions, one ShuffleEll),
-   CG's operator (the whole 1M ``M + 1e-3 S`` as ShuffleEll) and the finest
-   U0^T of the 262k SIG21 hierarchy;
+   times and bounds: every SlicedEll operator of the 1M Poisson context
+   (A1-A3, U0-U3, U0^T-U3^T, M), CG's operator (the whole 1M ``M + 1e-3
+   S``) and the finest U0^T of the 262k SIG21 hierarchy through
+   sliced_spmv, each beside the same operator in the JAX package's
+   ShuffleEll layout through shuffle_spmv (the route it replaced), both
+   plain versions and a cuSPARSE CSR product (``library_ms``, a yardstick
+   the port never calls), timed in turns (device time from torch.profiler,
+   beside CUDA events), with the bound, every threads-per-row variant of
+   sliced_spmv, and the sums over one 1M V-cycle; A0 (DiagEll) through
+   diag_spmv and cuSPARSE; the halo phase's stacked interior A0 (4
+   partitions, one ShuffleEll) through shuffle_spmv;
 3. smoothing: the 10k icosphere(5, bump=0.15) smoothing solve
    (M + 1e-3 S, rhs M @ V) through MultigridSolver(device="cuda"),
    checked against a host direct solve;
 4. poisson: the 1M-vertex torus Poisson solve (1e-6 M + S, rhs M @ randn,
    seed 42, tol 1e-4, criterion 2, lower_bound 1000) through the facade
-   in mode="fused";
+   in mode="fused", and one warm solve under torch.profiler (kernel ms per
+   dispatched cycle by kernel, device idle share);
    halo: the same system on phase poisson's context over 4 row partitions
    (``parallel.halo.HaloContext``) held by one NCCL rank on this card
    (one-rank process group, ``file://`` rendezvous): cold and warm solves
@@ -58,6 +66,9 @@ import numpy as np
 
 TOL_F32 = 1e-5    # kernel vs plain, relative to max |y|
 TOL_F64 = 1e-12
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+FP64_FLOPS = 34e12
 TORUS_1M = (1024, 1024)
 TORUS_262K = (724, 362)
 # experiments/out/timing/noef_smoothing_all_0.001_table.csv, "Torus 262K"
@@ -92,21 +103,94 @@ def cuda_time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def time_in_turns(fns, order, reps=20):
+    """Per-call ms of each function in ``fns``, taken in the turns of
+    ``order`` (``reps`` calls a turn, 3 for a plain version) and averaged
+    over its turns, two ways: CUDA events around the turn (``event``: the
+    device timeline per call, gaps where it waits for the host included)
+    and the summed durations of the kernels, copies and fills the calls
+    ran (``device``), from a torch.profiler session of its own per turn.
+    A call of a few us is bound by the host's launch rate, so only the
+    device time says what its kernel costs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def calls(k):
+        return 3 if "plain" in k else reps
+
+    event, device = {}, {}
+    for k in order:
+        event.setdefault(k, []).append(cuda_time_ms(fns[k], calls(k)))
+        for _attempt in range(3):   # a session now and then records no kernels
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls(k)):
+                    fns[k]()
+                torch.cuda.synchronize()
+            busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                       if getattr(e.device_type, "name", "") == "CUDA")
+            if busy > 0:
+                break
+        else:
+            raise AssertionError(f"profiler: no device work recorded for {k}")
+        device.setdefault(k, []).append(busy / 1e3 / calls(k))
+    return ({k: sum(v) / len(v) for k, v in event.items()},
+            {k: sum(v) / len(v) for k, v in device.items()})
+
+
+def spmv_bound(nnz, nrows, ncols, d, itemsize):
+    """(least ms, what bounds it) of y = A x on this card: each stored
+    nonzero read once as (int32 column, value), x and y once each, against
+    2 nnz d operations at the card's peak non-tensor rate."""
+    nbytes = nnz * (4 + itemsize) + (nrows + ncols) * d * itemsize
+    flops = 2 * nnz * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (FP32_FLOPS if itemsize == 4 else FP64_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_tensor(csr, dtype, dev):
+    """A scipy csr matrix as a torch sparse CSR tensor on the card (the
+    cuSPARSE yardstick)."""
+    import torch
+
+    csr = csr.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int32)),
+        torch.from_numpy(csr.indices.astype(np.int32)),
+        torch.from_numpy(csr.data).to(dtype), size=csr.shape,
+        check_invariants=False).to(dev)
+
+
+def library_apply(A_csr, x):
+    """cuSPARSE SpMV (d = 1) or SpMM through torch."""
+    import torch
+
+    return torch.mv(A_csr, x) if x.ndim == 1 else A_csr @ x
+
+
+def rel_err(y, ref):
+    err = (y - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
 class Launches:
     """Per-phase kernel launch counts (reset to 0 before each phase) and
     their sum over the solve phases."""
 
-    def __init__(self, smod, dmod):
-        self.smod, self.dmod = smod, dmod
-        self.total = {"shuffle_spmv": 0, "diag_spmv": 0}
+    NAMES = ("sliced_spmv", "diag_spmv", "shuffle_spmv")
+
+    def __init__(self, *mods):
+        self.mods = dict(zip(self.NAMES, mods))
+        self.total = dict.fromkeys(self.NAMES, 0)
 
     def reset(self):
-        self.smod.launches = 0
-        self.dmod.launches = 0
+        for m in self.mods.values():
+            m.launches = 0
 
     def read(self):
-        got = {"shuffle_spmv": self.smod.launches,
-               "diag_spmv": self.dmod.launches}
+        got = {k: m.launches for k, m in self.mods.items()}
         for k, v in got.items():
             self.total[k] += v
         return got
@@ -114,19 +198,20 @@ class Launches:
 
 def layouts(ctx):
     """Operator and transfer layouts a context planned, e.g.
-    A:[DiagEll, ShuffleEll] U:[ShuffleTransfer]; EllMatrix and
+    A:[DiagEll, SlicedEll] U:[ShuffleTransfer]; EllMatrix and
     Prolongation are the planner's choices for pathological padding."""
     a = [type(lvl.A).__name__ for lvl in ctx.levels]
     u = [type(t).__name__ for t in ctx.transfers]
     return f"A:{a} U:{u}"
 
 
-def trace_summary(prof, label):
-    """Kernel events of a torch.profiler run: count, time, the
-    shuffle_spmv share of the compute kernels (NCCL kernels apart), the
-    device idle share over the span, and the largest kernels by time.
-    ``label`` is the run's ``record_function`` range, which the trace also
-    carries on the device timeline; it is not a kernel."""
+def trace_summary(prof, label, cycles):
+    """Kernel events of a torch.profiler run: count, time, each SpMV
+    kernel's ms per cycle (``cycles`` dispatched) and share of the compute
+    kernels (NCCL kernels apart), the device idle share over the span, and
+    the largest kernels by time.  ``label`` is the run's
+    ``record_function`` range, which the trace also carries on the device
+    timeline; it is not a kernel."""
     dev = [e for e in prof.events()
            if getattr(e.device_type, "name", "") == "CUDA" and e.name != label]
     if not dev:
@@ -154,11 +239,18 @@ def trace_summary(prof, label):
         by_name[key] = by_name.get(key, 0.0) + e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     comp_us = us(comp)
-    shuffle_us = us(e for e in comp if "shuffle_spmv_kernel" in e.name)
+    per = max(cycles, 1)
+    spmv = []
+    for name in ("sliced_spmv", "diag_spmv", "shuffle_spmv"):
+        evs = [e for e in comp if f"{name}_kernel" in e.name]
+        spmv.append(f"{name} {len(evs) / per:.1f} launches {us(evs) / 1000 / per:.4f} "
+                    f"ms per cycle (share {us(evs) / max(comp_us, 1e-9):.3f})")
     return (f"{len(kern)} kernel events ({len(nccl)} NCCL, {us(nccl) / 1000:.3f} ms); "
-            f"compute kernel time {comp_us / 1000:.3f} ms, shuffle_spmv share "
-            f"{shuffle_us / max(comp_us, 1e-9):.3f}; device busy {busy / 1000:.3f} "
-            f"of {span / 1000:.3f} ms (idle share {1 - busy / span:.3f}); top: "
+            f"compute kernel time {comp_us / 1000:.3f} ms over {cycles} dispatched "
+            f"cycles ({comp_us / 1000 / per:.4f} ms per cycle, "
+            f"{len(comp) / per:.1f} kernels per cycle); " + "; ".join(spmv)
+            + f"; device busy {busy / 1000:.3f} of {span / 1000:.3f} ms (idle share "
+            f"{1 - busy / span:.3f}); top: "
             + ", ".join(f"{k} {v / 1000:.3f} ms" for k, v in top))
 
 
@@ -180,11 +272,14 @@ def main():
     from gravo_mg_tpu_torch.ops import build
     from gravo_mg_tpu_torch.ops import diag_spmv as dmod
     from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
+    from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
     from gravo_mg_tpu_torch.parallel.halo import (
         PartitionedOp, _build_dist_op, make_solver_mesh, partition_rows,
     )
     from gravo_mg_tpu_torch.solver.direct import cg_operator
-    from gravo_mg_tpu_torch.sparse import DiagEll, ShuffleEll, shuffle_from_scipy
+    from gravo_mg_tpu_torch.sparse import (
+        DiagEll, ShuffleTransfer, SlicedEll, shuffle_from_scipy, sliced_from_scipy,
+    )
     from gravo_mg_tpu_torch.utils.laplacian import (
         cotan_laplacian, mass_barycentric, mass_voronoi,
     )
@@ -193,6 +288,7 @@ def main():
         neighbors_from_faces, neighbors_from_stiffness,
     )
     from gravo_mg_tpu_torch.utils.normalize import normalize_area
+    from gravo_mg_tpu_torch.utils.profiler import torch_trace
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -206,7 +302,9 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     dev = torch.device("cuda")
-    counts = Launches(smod, dmod)
+    counts = Launches(slmod, dmod, smod)
+    trace_dir = tempfile.mkdtemp(prefix="gravo_trace_")
+    atexit.register(shutil.rmtree, trace_dir, True)
 
     # ---- 1. build ----------------------------------------------------------
     try:
@@ -299,80 +397,232 @@ def main():
             baselines[name] = {"solver": s, "ctx": c, "hierarchy_s": t_h,
                                "setup_s": time.perf_counter() - t0,
                                "dof": list(s.hierarchy.dof)}
-        # The SIG21 finest transfer pads past the planner's cap (the solver
-        # applies it as a Prolongation); its U0^T still makes a kernel shape.
-        sig21_U0T = shuffle_from_scipy(
-            baselines["sig21"]["ctx"].U_csr[0].T.tocsr()
-        ).to(dev)
+        # The SIG21 finest transfer as the solver planned it (a SlicedEll
+        # pair, or a Prolongation past the padding cap; then built here).
+        t21 = baselines["sig21"]["ctx"].transfers[0]
+        sig21_UT_csr = baselines["sig21"]["ctx"].U_csr[0].T.tocsr()
+        sig21_U0T = (t21.UT if isinstance(t21, ShuffleTransfer)
+                     else sliced_from_scipy(sig21_UT_csr).to(dev))
+        log(f"baselines-setup: SIG21 finest transfer {type(t21).__name__}")
         log(f"baselines-setup: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("baselines-setup", exc)
 
     # ---- 2. kernels vs plain ---------------------------------------------
-    cases = [
-        ("A0", ctx.levels[0].A),
-        ("U0T", ctx.transfers[0].UT),
-        ("A1", ctx.levels[1].A),
-        ("M", ctx.M),
-        ("CG M+1e-3S", A_cg),
-        ("SIG21-262k U0T", sig21_U0T),
-        ("halo A0 interior, 4 partitions stacked", A0_stacked),
-    ]
-    kinfo = {
-        "diag_spmv": {"err": 0.0, "ms": None, "plain_ms": None},
-        "shuffle_spmv": {"err": 0.0, "ms": None, "plain_ms": None},
-    }
+    # Every SlicedEll operator of the 1M context, CG's and SIG21's finest
+    # restriction: sliced_spmv ("new") beside shuffle_spmv on the JAX
+    # package's layout of the same matrix ("old", the route it replaced),
+    # both plain versions and cuSPARSE ("library"), timed in turns.
+    sliced_cases = [(f"A{k}", lvl.A, ctx.chain_csr[k])
+                    for k, lvl in enumerate(ctx.levels) if k > 0]
+    for k, t in enumerate(ctx.transfers):
+        sliced_cases += [(f"U{k}T", t.UT, ctx.U_csr[k].T.tocsr()),
+                         (f"U{k}", t.U, ctx.U_csr[k])]
+    sliced_cases += [("M", ctx.M, ctx.mass_csr), ("CG M+1e-3S", A_cg, lhs_cg),
+                     ("SIG21-262k U0T", sig21_U0T, sig21_UT_csr)]
+    kinfo = {name: {"err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
+                    "bound_by": None, "library_ms": None}
+             for name in Launches.NAMES}
+
+    def keep(name, err, ms=None, plain_ms=None, bound=None, library_ms=None):
+        info = kinfo[name]
+        info["err"] = max(info["err"], err)
+        if ms is not None:
+            info.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                        bound_by=bound[1], library_ms=library_ms)
+
+    # applies per V-cycle of the 1M context (d = 1): each level's A in the
+    # smoother sweeps and its residual, each transfer once, M once in the
+    # criterion-2 residual check
+    cfg = ctx.cfg
+    per_cycle = {f"A{k}": cfg.pre_iters + cfg.post_iters + 1
+                 for k in range(1, len(ctx.levels))}
+    for k in range(len(ctx.transfers)):
+        per_cycle.update({f"U{k}T": 1, f"U{k}": 1})
+    per_cycle["M"] = 1
+    cycle = {"new": 0.0, "old": 0.0, "library": 0.0, "bound": 0.0,
+             "new MB": 0.0, "old MB": 0.0}
     rng = np.random.default_rng(0)
     try:
         t_wall = time.perf_counter()
-        for label, A in cases:
-            kname = "diag_spmv" if isinstance(A, DiagEll) else "shuffle_spmv"
-            if label == "A0" and kname != "diag_spmv":
-                raise AssertionError("A0 is not planned as DiagEll")
-            if label != "A0" and not isinstance(A, ShuffleEll):
-                raise AssertionError(f"{label} is not a ShuffleEll")
-
-            def run(x, v, plain):
-                if isinstance(A, DiagEll):
-                    f = dmod.diag_spmv_plain if plain else dmod.diag_spmv
-                    return f(A.start, A.r, v, x, A.tg, A.nrows)
-                f = smod.shuffle_spmv_plain if plain else smod.shuffle_spmv
-                return f(A.q, A.r, v, x, A.nrows)
-
-            shape = tuple(A.r.shape)
-            slot_bytes = A.r.numel() * (1 + 4)
+        for label, A, csr in sliced_cases:
+            if not isinstance(A, SlicedEll):
+                raise AssertionError(f"{label} is a {type(A).__name__}, not SlicedEll")
+            inf = A.info()
+            sh = shuffle_from_scipy(csr).to(dev)        # the JAX package's layout
+            lib = csr_tensor(csr, torch.float32, dev)
+            kp, lanes = sh.q.shape[0], sh.r.numel()
+            log(f"phase kernels: {label} rows {A.nrows} cols {A.ncols} nnz {A.nnz}; "
+                f"sliced {inf['entries']} entries ({inf['padding']:.2f}x nnz), "
+                f"widest slice {inf['max_width']}, {A.tpr} threads per row; "
+                f"shuffle KP {kp}, {lanes} slot lanes ({lanes / max(A.nnz, 1):.2f}x nnz)")
             for d in (1, 3):
                 xs = rng.standard_normal((A.ncols,) if d == 1 else (A.ncols, d))
                 x = torch.from_numpy(xs).to(dev, torch.float32)
-                y = run(x, A.v, False)
-                ref = run(x, A.v, True)
+                fns = {
+                    "new": lambda: slmod.sliced_spmv(A.slice_ptr, A.col, A.val, x,
+                                                     A.nrows, A.tpr),
+                    "old": lambda: smod.shuffle_spmv(sh.q, sh.r, sh.v, x, sh.nrows),
+                    "library": lambda: library_apply(lib, x),
+                    "plain": lambda: slmod.sliced_spmv_plain(A.slice_ptr, A.col,
+                                                             A.val, x, A.nrows),
+                    "old plain": lambda: smod.shuffle_spmv_plain(sh.q, sh.r, sh.v,
+                                                                 x, sh.nrows),
+                }
+                ys = {k: f() for k, f in fns.items()}
                 torch.cuda.synchronize()
-                err = (y - ref).abs().max().item()
-                rel = err / max(ref.abs().max().item(), 1e-30)
-                ok = rel <= TOL_F32 and bool(torch.isfinite(y).all())
-                ms = cuda_time_ms(lambda: run(x, A.v, False), 20)
-                pms = cuda_time_ms(lambda: run(x, A.v, True), 3)
-                log(f"phase kernels: {kname} {label} {shape} d={d} f32 "
-                    f"max_abs_err {err:.3e} rel {rel:.3e} (tol {TOL_F32}) "
-                    f"kernel {ms:.4f} ms ({slot_bytes / ms / 1e6:.1f} GB/s of v+r) "
-                    f"plain {pms:.4f} ms {'ok' if ok else 'MISMATCH'}")
+                errs = {
+                    "vs plain": rel_err(ys["new"], ys["plain"]),
+                    "vs old": rel_err(ys["new"], ys["old"]),
+                    "vs old plain": rel_err(ys["new"], ys["old plain"]),
+                    "old vs its plain": rel_err(ys["old"], ys["old plain"]),
+                    "library vs plain": rel_err(ys["library"], ys["plain"]),
+                }
+                ok = (all(r <= TOL_F32 for _, r in errs.values())
+                      and bool(torch.isfinite(ys["new"]).all()))
+                ev, ms = time_in_turns(fns, ["old", "new", "library", "plain",
+                                             "old plain", "library", "new", "old"])
+                bound = spmv_bound(A.nnz, A.nrows, A.ncols, d, 4)
+                log(f"phase kernels: sliced_spmv {label} d={d} f32 device us: new "
+                    f"{ms['new'] * 1e3:.2f}, old shuffle_spmv {ms['old'] * 1e3:.2f}, "
+                    f"library (cuSPARSE) {ms['library'] * 1e3:.2f}, plain "
+                    f"{ms['plain'] * 1e3:.1f}, old plain {ms['old plain'] * 1e3:.1f} "
+                    f"(events per call: new {ev['new'] * 1e3:.2f}, old {ev['old'] * 1e3:.2f}, "
+                    f"library {ev['library'] * 1e3:.2f}); bound {bound[0] * 1e3:.2f} us "
+                    f"({bound[1]}), share of bound new {bound[0] / ms['new']:.3f} old "
+                    f"{bound[0] / ms['old']:.3f} library {bound[0] / ms['library']:.3f}; "
+                    f"rel err "
+                    + ", ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+                    + f" (tol {TOL_F32}) {'ok' if ok else 'MISMATCH'}")
                 if not ok:
-                    raise AssertionError(f"{kname} {label} d={d} disagrees")
-                info = kinfo[kname]
-                info["err"] = max(info["err"], err)
-                if d == 1 and label in ("A0", "U0T"):
-                    info["ms"], info["plain_ms"] = ms, pms
-                del x, y, ref
-            # f64: the same layout with values widened exactly
+                    raise AssertionError(f"sliced_spmv {label} d={d} disagrees")
+                if d == 1:
+                    # device time of every threads-per-row variant
+                    sweep = {f"tpr {t}": (lambda t=t: slmod.sliced_spmv(
+                        A.slice_ptr, A.col, A.val, x, A.nrows, t)) for t in slmod.TPRS}
+                    _, tms = time_in_turns(sweep, list(sweep))
+                    log(f"phase kernels: sliced_spmv {label} d=1 f32 device us by threads "
+                        "per row: " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in tms.items())
+                        + f" (planned: tpr {A.tpr})")
+                if d == 1 and label in per_cycle:
+                    w = per_cycle[label]
+                    for k in ("new", "old", "library"):
+                        cycle[k] += w * ms[k]
+                    cycle["bound"] += w * bound[0]
+                    cycle["new MB"] += w * A.col.numel() * 8 / 1e6
+                    cycle["old MB"] += w * lanes * 5 / 1e6
+                first = d == 1 and label == "U0T"
+                keep("sliced_spmv", errs["vs plain"][0],
+                     *((ms["new"], ms["plain"], bound, ms["library"]) if first else ()))
+                keep("shuffle_spmv", errs["old vs its plain"][0],
+                     *((ms["old"], ms["old plain"], bound, ms["library"])
+                       if first else ()))
+                del x, ys, fns
+            # f64: the same layouts with values widened exactly
             x = torch.from_numpy(rng.standard_normal(A.ncols)).to(dev)
-            v64 = A.v.double()
-            y, ref = run(x, v64, False), run(x, v64, True)
-            rel = ((y - ref).abs().max() / ref.abs().max()).item()
-            log(f"phase kernels: {kname} {label} d=1 f64 rel {rel:.3e} (tol {TOL_F64})")
-            if not rel <= TOL_F64:
-                raise AssertionError(f"{kname} {label} f64 disagrees")
-            del x, v64, y, ref
-        del cases, A, sig21_U0T, A0_stacked
+            v64, sv64 = A.val.double(), sh.v.double()
+            y = slmod.sliced_spmv(A.slice_ptr, A.col, v64, x, A.nrows, A.tpr)
+            rels = [rel_err(y, ref)[1] for ref in (
+                slmod.sliced_spmv_plain(A.slice_ptr, A.col, v64, x, A.nrows),
+                smod.shuffle_spmv(sh.q, sh.r, sv64, x, sh.nrows),
+                smod.shuffle_spmv_plain(sh.q, sh.r, sv64, x, sh.nrows))]
+            log(f"phase kernels: sliced_spmv {label} d=1 f64 rel err vs plain "
+                f"{rels[0]:.2e}, vs old {rels[1]:.2e}, vs old plain {rels[2]:.2e} "
+                f"(tol {TOL_F64})")
+            if not max(rels) <= TOL_F64:
+                raise AssertionError(f"sliced_spmv {label} f64 disagrees")
+            del x, v64, sv64, y, sh, lib
+
+        log(f"phase kernels: 1M Poisson V-cycle, its {sum(per_cycle.values())} "
+            f"SlicedEll applies at d=1 (" + ", ".join(
+                f"{k} x{w}" for k, w in per_cycle.items())
+            + f"): device ms per cycle new sliced_spmv {cycle['new']:.4f}, old "
+            f"shuffle_spmv {cycle['old']:.4f}, library (cuSPARSE) "
+            f"{cycle['library']:.4f}, bound {cycle['bound']:.4f}; streamed per cycle "
+            f"{cycle['new MB']:.1f} MB of sliced (col, val) against {cycle['old MB']:.1f} "
+            "MB of ShuffleEll (v, r)")
+
+        # A0 through diag_spmv, beside cuSPARSE
+        A = ctx.levels[0].A
+        if not isinstance(A, DiagEll):
+            raise AssertionError(f"A0 is a {type(A).__name__}, not DiagEll")
+        lib = csr_tensor(ctx.chain_csr[0], torch.float32, dev)
+        nnz0 = ctx.chain_csr[0].nnz
+        log(f"phase kernels: A0 rows {A.nrows} nnz {nnz0} DiagEll {tuple(A.r.shape)} "
+            f"tg {A.tg} ({A.r.numel() / nnz0:.2f}x nnz)")
+        for d in (1, 3):
+            xs = rng.standard_normal((A.ncols,) if d == 1 else (A.ncols, d))
+            x = torch.from_numpy(xs).to(dev, torch.float32)
+            fns = {
+                "kernel": lambda: dmod.diag_spmv(A.start, A.r, A.v, x, A.tg, A.nrows),
+                "library": lambda: library_apply(lib, x),
+                "plain": lambda: dmod.diag_spmv_plain(A.start, A.r, A.v, x, A.tg,
+                                                      A.nrows),
+            }
+            ys = {k: f() for k, f in fns.items()}
+            torch.cuda.synchronize()
+            err, rel = rel_err(ys["kernel"], ys["plain"])
+            _, rel_lib = rel_err(ys["library"], ys["plain"])
+            ok = rel <= TOL_F32 and rel_lib <= TOL_F32 and bool(
+                torch.isfinite(ys["kernel"]).all())
+            ev, ms = time_in_turns(fns, ["kernel", "library", "plain", "library",
+                                         "kernel"])
+            bound = spmv_bound(nnz0, A.nrows, A.ncols, d, 4)
+            log(f"phase kernels: diag_spmv A0 d={d} f32 device us: kernel "
+                f"{ms['kernel'] * 1e3:.2f}, library (cuSPARSE) {ms['library'] * 1e3:.2f}, "
+                f"plain {ms['plain'] * 1e3:.1f} (events per call: kernel "
+                f"{ev['kernel'] * 1e3:.2f}, library {ev['library'] * 1e3:.2f}); bound "
+                f"{bound[0] * 1e3:.2f} us ({bound[1]}), "
+                f"share of bound kernel {bound[0] / ms['kernel']:.3f} library "
+                f"{bound[0] / ms['library']:.3f}; max_abs_err {err:.3e} rel {rel:.3e}, "
+                f"library rel {rel_lib:.3e} (tol {TOL_F32}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"diag_spmv A0 d={d} disagrees")
+            keep("diag_spmv", err, *((ms["kernel"], ms["plain"], bound, ms["library"])
+                                     if d == 1 else ()))
+            del x, ys, fns
+        x = torch.from_numpy(rng.standard_normal(A.ncols)).to(dev)
+        v64 = A.v.double()
+        _, rel = rel_err(dmod.diag_spmv(A.start, A.r, v64, x, A.tg, A.nrows),
+                         dmod.diag_spmv_plain(A.start, A.r, v64, x, A.tg, A.nrows))
+        log(f"phase kernels: diag_spmv A0 d=1 f64 rel {rel:.3e} (tol {TOL_F64})")
+        if not rel <= TOL_F64:
+            raise AssertionError("diag_spmv A0 f64 disagrees")
+        del x, v64, lib
+
+        # the halo path's stacked interior A0 through shuffle_spmv
+        A = A0_stacked
+        nnz_h = int(torch.count_nonzero(A.v))
+        for d in (1, 3):
+            xs = rng.standard_normal((A.ncols,) if d == 1 else (A.ncols, d))
+            x = torch.from_numpy(xs).to(dev, torch.float32)
+            y = smod.shuffle_spmv(A.q, A.r, A.v, x, A.nrows)
+            ref = smod.shuffle_spmv_plain(A.q, A.r, A.v, x, A.nrows)
+            err, rel = rel_err(y, ref)
+            ok = rel <= TOL_F32 and bool(torch.isfinite(y).all())
+            _, ms = time_in_turns({
+                "kernel": lambda: smod.shuffle_spmv(A.q, A.r, A.v, x, A.nrows),
+                "plain": lambda: smod.shuffle_spmv_plain(A.q, A.r, A.v, x, A.nrows),
+            }, ["kernel", "plain", "kernel"])
+            bound = spmv_bound(nnz_h, A.nrows, A.ncols, d, 4)
+            log(f"phase kernels: shuffle_spmv halo A0 interior, 4 partitions stacked "
+                f"{tuple(A.r.shape)} d={d} f32 device us: kernel {ms['kernel'] * 1e3:.2f} "
+                f"plain {ms['plain'] * 1e3:.1f}; bound {bound[0] * 1e3:.2f} us "
+                f"({bound[1]}, {nnz_h} nonzeros), share {bound[0] / ms['kernel']:.3f}; "
+                f"max_abs_err {err:.3e} "
+                f"rel {rel:.3e} (tol {TOL_F32}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"shuffle_spmv halo A0 d={d} disagrees")
+            keep("shuffle_spmv", err)
+            del x, y, ref
+        x = torch.from_numpy(rng.standard_normal(A.ncols)).to(dev)
+        v64 = A.v.double()
+        _, rel = rel_err(smod.shuffle_spmv(A.q, A.r, v64, x, A.nrows),
+                         smod.shuffle_spmv_plain(A.q, A.r, v64, x, A.nrows))
+        log(f"phase kernels: shuffle_spmv halo A0 d=1 f64 rel {rel:.3e} (tol {TOL_F64})")
+        if not rel <= TOL_F64:
+            raise AssertionError("shuffle_spmv halo A0 f64 disagrees")
+        del x, v64, A, sliced_cases, sig21_U0T, A0_stacked, t21
         torch.cuda.empty_cache()
         log(f"kernels: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
@@ -394,7 +644,8 @@ def main():
         xd = s2.direct_solve(lhs2, rhs2)
         rel2 = float(np.linalg.norm(x2 - xd) / np.linalg.norm(xd))
         ok = (x2.shape == rhs2.shape and np.isfinite(x2).all()
-              and res2 <= 1e-4 and rel2 <= 1e-3)
+              and res2 <= 1e-4 and rel2 <= 1e-3 and launched["sliced_spmv"] > 0
+              and launched["shuffle_spmv"] == 0)
         log(f"phase smoothing: n={len(V2)} dof={s2.hierarchy.dof} "
             f"cycles {int(s2.solver_timing['iterations'])} residual {res2:.3e} "
             f"vs {s2.solver_timing['direct_backend']} rel {rel2:.3e} "
@@ -416,20 +667,30 @@ def main():
         cycles_ms = solver.solver_timing["cycles"]
         res = solver.residual(lhs, rhs, x)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        t0 = time.perf_counter()
-        solver.solve(lhs, rhs, mode="fused")
-        warm_s = time.perf_counter() - t0
-        warm_ms = solver.solver_timing["cycles"]
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            solver.solve(lhs, rhs, mode="fused")
+            warm.append((solver.solver_timing["cycles"], time.perf_counter() - t0))
+        with torch_trace(trace_dir, name="poisson_warm_solve") as prof:
+            solver.solve(lhs, rhs, mode="fused")
+        traced_ms = solver.solver_timing["cycles"]
+        dispatched = ctx.dispatched
+        trace_msg = trace_summary(prof, "poisson_warm_solve", dispatched)
         ok = (np.isfinite(x).all() and x.shape == rhs.shape and res <= 1e-4
-              and cycles <= 6 and launches["shuffle_spmv"] > 0
-              and launches["diag_spmv"] > 0)
+              and cycles <= 6 and launches["sliced_spmv"] > 0
+              and launches["diag_spmv"] > 0 and launches["shuffle_spmv"] == 0)
         log(f"phase poisson: dof={solver.hierarchy.dof} {layouts(ctx)} "
             f"cycles {cycles} residual(host f64) {res:.3e} "
             f"trace {[f'{c[1]:.3e}' for c in solver.convergence]}")
         log(f"phase poisson: hierarchy {t_hier:.2f} s setup {t_setup:.2f} s "
             f"cycles {cycles_ms:.2f} ms ({cycles_ms / max(cycles, 1):.3f} ms/cycle) "
-            f"warm solve cycles {warm_ms:.2f} ms (call {warm_s:.3f} s) "
-            f"peak device memory {peak:.0f} MiB")
+            f"warm solves' cycles " + ", ".join(
+                f"{w:.2f} ms ({w / max(cycles, 1):.3f} ms/cycle, call {c:.3f} s)"
+                for w, c in warm)
+            + f"; peak device memory {peak:.0f} MiB")
+        log(f"phase poisson: traced warm solve {traced_ms:.2f} ms, {dispatched} "
+            f"cycles dispatched for {cycles}: {trace_msg}")
         log(f"phase poisson: launches {launches} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("1M Poisson solve failed its checks")
@@ -446,7 +707,6 @@ def main():
         import torch.distributed as dist
         from gravo_mg_tpu_torch.parallel import multihost
         from gravo_mg_tpu_torch.parallel.halo import HaloContext
-        from gravo_mg_tpu_torch.utils.profiler import torch_trace
 
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # no network
         multihost.initialize(
@@ -486,7 +746,7 @@ def main():
         with torch_trace(halo_dir, name="halo_warm_solve") as prof:
             hctx.solve(rhs, **kw)
         traced_ms = hctx.timing["cycles_ms"]
-        trace_msg = trace_summary(prof, "halo_warm_solve")
+        trace_msg = trace_summary(prof, "halo_warm_solve", hcycles)
         halo0 = plan[0]["A"]["halo"]
         checks = {
             "residual <= 1e-4": hres <= 1e-4,
@@ -535,7 +795,7 @@ def main():
         solver.cg_solve(lhs_cg, rhs_cg, max_iter=2000)
         warm_ms = solver.solver_timing["cg_ms"]
         ok = (x.shape == rhs_cg.shape and np.isfinite(x).all() and res <= 1e-4
-              and launched["shuffle_spmv"] > 0)
+              and launched["sliced_spmv"] > 0)
         log(f"phase cg: n={n} operator {type(A_cg).__name__} "
             f"iterations {int(t['cg_iterations'])} iterate loop {t['cg_ms']:.2f} ms "
             f"(call with operator build and upload {wall:.2f} s; warm call's "
@@ -569,7 +829,7 @@ def main():
         b_u = B[u] - mq.A_uk @ Y
         res = float(np.sqrt((r @ (Muu @ r)) / (b_u @ (Muu @ b_u))))
         ok = (np.isfinite(x).all() and np.array_equal(x[known], Y)
-              and res <= 1e-4 and launched["shuffle_spmv"] > 0
+              and res <= 1e-4 and launched["sliced_spmv"] > 0
               and launched["diag_spmv"] > 0)
         log(f"phase minquad: n={n} known {known.size} dof={mq.ctx.hierarchy.dof} "
             f"{layouts(mq.ctx)} precompute {t_pre:.2f} s cycles {iters} "
@@ -622,7 +882,7 @@ def main():
             contexts.update(id(c) for c in fs._contexts.values())
             step_ok = (np.isfinite(Vt).all() and res <= 1e-4
                        and len(fs._contexts) == 1 and len(contexts) == 1
-                       and launched["shuffle_spmv"] > 0
+                       and launched["sliced_spmv"] > 0
                        and launched["diag_spmv"] > 0)
             ok &= step_ok
             what = "context setup" if step == 0 else "update_lhs"
@@ -654,7 +914,7 @@ def main():
             cycles = int(s.solver_timing["iterations"])
             res = s.residual(lhs_b, rhs_b, x)
             this_ok = (np.isfinite(x).all() and x.shape == rhs_b.shape
-                       and res <= 1e-4 and launched["shuffle_spmv"] > 0)
+                       and res <= 1e-4 and launched["sliced_spmv"] > 0)
             ok &= this_ok
             log(f"phase baselines: {name} dof={b['dof']} hierarchy "
                 f"{b['hierarchy_s']:.2f} s setup {b['setup_s']:.2f} s cycles "
@@ -668,21 +928,22 @@ def main():
     except Exception as exc:  # noqa: BLE001
         fail("baselines", exc)
 
+    sources = {
+        "sliced_spmv": ("sliced_spmv.cu", "gravo_mg_tpu/ops/shuffle_spmv.py:87"),
+        "diag_spmv": ("diag_spmv.cu", "gravo_mg_tpu/ops/diag_spmv.py:146"),
+        "shuffle_spmv": ("shuffle_spmv.cu", "gravo_mg_tpu/ops/shuffle_spmv.py:87"),
+    }
+    # ms, plain_ms, bound and library_ms at U0^T d=1 (sliced_spmv, and
+    # shuffle_spmv on the JAX layout of the same matrix) and A0 d=1
+    # (diag_spmv); launches summed over the solve phases.
     kernels = [
-        {"name": "diag_spmv", "route": "cuda",
-         "source": "gravo_mg_tpu_torch/csrc/diag_spmv.cu",
-         "replaces": "gravo_mg_tpu/ops/diag_spmv.py:146",
-         "launches": counts.total["diag_spmv"],
-         "max_abs_err": kinfo["diag_spmv"]["err"],
-         "ms": kinfo["diag_spmv"]["ms"],
-         "plain_ms": kinfo["diag_spmv"]["plain_ms"]},
-        {"name": "shuffle_spmv", "route": "cuda",
-         "source": "gravo_mg_tpu_torch/csrc/shuffle_spmv.cu",
-         "replaces": "gravo_mg_tpu/ops/shuffle_spmv.py:86",
-         "launches": counts.total["shuffle_spmv"],
-         "max_abs_err": kinfo["shuffle_spmv"]["err"],
-         "ms": kinfo["shuffle_spmv"]["ms"],
-         "plain_ms": kinfo["shuffle_spmv"]["plain_ms"]},
+        {"name": name, "route": "cuda",
+         "source": f"gravo_mg_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": counts.total[name], "max_abs_err": kinfo[name]["err"],
+         "ms": kinfo[name]["ms"], "plain_ms": kinfo[name]["plain_ms"],
+         "bound_ms": kinfo[name]["bound_ms"], "bound_by": kinfo[name]["bound_by"],
+         "library_ms": kinfo[name]["library_ms"]}
+        for name, (src, replaces) in sources.items()
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ from .hierarchy.builder import HierarchyLevel, build_hierarchy
 from .hierarchy.variants import build_hierarchy_ablation, build_hierarchy_sig06
 from .solver.direct import cg_solve, direct_solve
 from .solver.multigrid import MultigridSolveContext, SolverConfig
-from .sparse import make_prolongation
+from .sparse import make_prolongation, resolve_device
 from .utils.io import write_convergence_csv, write_timing_csv
 
 
@@ -34,19 +34,6 @@ def _pattern_key(lhs) -> str:
     h.update(np.ascontiguousarray(lhs.indptr).tobytes())
     h.update(np.ascontiguousarray(lhs.indices).tobytes())
     return h.hexdigest()
-
-
-def _resolve_device(device) -> torch.device:
-    """The torch device to solve on; CUDA must really be there."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch path explicitly"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class MultigridSolver:
@@ -70,7 +57,7 @@ class MultigridSolver:
         ``device`` selects where the solve runs and ``diag_min_groups``
         the row-group count from which a level is planned as DiagEll.
         """
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.pos = np.asarray(pos, dtype=np.float64)
         self.neigh = np.asarray(neigh, dtype=np.int32)
         if not sp.issparse(mass):

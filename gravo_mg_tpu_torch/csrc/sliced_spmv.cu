@@ -1,0 +1,146 @@
+// SlicedEll SpMV for Hopper (sm_90a):
+//
+//   y[32 s + lane, j] = sum_{k < w_s} val[e] * x[col[e], j],
+//   e = slice_ptr[s] + 32 k + lane,  w_s = (slice_ptr[s+1] - slice_ptr[s]) / 32
+//
+// Computes the function of the TPU kernel
+// gravo_mg_tpu/ops/shuffle_spmv.py::lane_shuffle_fma together with the XLA
+// row gather that feeds it (gravo_mg_tpu/sparse.py shuffle_spmv_1d), on a
+// layout made for this card.  The TPU layout pads every 128-row group to
+// one 128-aligned x block per slot, because a TPU core gathers only by
+// lane shuffles within a block; a Hopper thread loads any address, so that
+// padding (17x the nonzeros for the finest restriction of the 1M case) buys
+// nothing here.  The sliced layout pads each 32-row slice only to its own
+// longest row (1.0-1.6x the nonzeros on the solver's operators).
+//
+// What bounds it: the stream of (col int32, val T) per stored entry,
+// nnz * (4 + sizeof(T)) bytes plus x and y once.  x is at most a few MB at
+// the sizes the solver runs (4 MB at 1M rows in f32), so the gathers from x
+// hit the H100's 50 MB L2 and no shared-memory staging is needed.
+//
+// Design.  A warp owns whole slices, so each slot's column and value loads
+// are contiguous across the warp's lanes:
+//  * TPR == 1 (thread per row; operators with many rows): a warp is one
+//    slice, lane = row, and each slot is one 128-byte coalesced load of
+//    columns and one of values;
+//  * TPR in {2..32} (operators with few, long rows: the coarse levels and
+//    their restrictions, where one thread per row leaves most of the card
+//    idle and serialises 40-240 dependent loads): a warp covers 32/TPR rows
+//    times TPR slots, lane = sub * (32/TPR) + row, thread `sub` sums slots
+//    sub, sub + TPR, ..., and a __shfl_xor_sync butterfly over the lanes of
+//    a row finishes the sum.
+// The summation order is fixed for a given TPR.  Up to kCols right-hand-side
+// columns per thread, wider right-hand sides over gridDim.y.  Offsets are
+// 64-bit.
+
+#include "spmv_common.cuh"
+
+namespace gravomg {
+
+constexpr int kSlice = 32;
+
+template <typename T, int TPR>
+__global__ void __launch_bounds__(kThreads)
+sliced_spmv_kernel(const int64_t* __restrict__ slice_ptr,
+                   const int32_t* __restrict__ col, const T* __restrict__ val,
+                   const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
+                   int64_t d) {
+  constexpr int kRows = kSlice / TPR;   // rows per warp
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kSlice;
+  const int lane = threadIdx.x % kSlice;
+  const int64_t s = warp / TPR;          // warp-uniform: whole warps leave
+  if (s * kSlice >= nrows) return;
+  const int rr = static_cast<int>(warp % TPR) * kRows + lane % kRows;
+  const int sub = lane / kRows;
+  const int64_t row = s * kSlice + rr;
+  const int64_t lo = slice_ptr[s];
+  const int64_t w = (slice_ptr[s + 1] - lo) / kSlice;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kCols;
+  const int64_t nj = d - j0 < kCols ? d - j0 : kCols;
+  const int32_t* c = col + lo + rr;
+  const T* v = val + lo + rr;
+  T acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = T(0);
+#pragma unroll 4
+  for (int64_t k = sub; k < w; k += TPR) {
+    const int64_t e = k * kSlice;
+    const T a = v[e];
+    const T* xc = x + static_cast<int64_t>(c[e]) * d + j0;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (j < nj) acc[j] += a * __ldg(xc + j);
+  }
+  if constexpr (TPR > 1) {
+#pragma unroll
+    for (int off = kSlice / 2; off >= kRows; off /= 2) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+    }
+  }
+  if (sub == 0 && row < nrows) {
+    T* yr = y + row * d + j0;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (j < nj) yr[j] = acc[j];
+  }
+}
+
+template <typename T, int TPR>
+void launch_tpr(const int64_t* slice_ptr, const int32_t* col, const T* val,
+                const T* x, T* y, int64_t nrows, int64_t d,
+                cudaStream_t stream) {
+  const int64_t slices = (nrows + kSlice - 1) / kSlice;
+  const int64_t threads = slices * TPR * kSlice;
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+                  static_cast<unsigned>((d + kCols - 1) / kCols));
+  sliced_spmv_kernel<T, TPR><<<grid, kThreads, 0, stream>>>(
+      slice_ptr, col, val, x, y, nrows, d);
+}
+
+template <typename T>
+int launch_sliced_spmv(const void* slice_ptr, const void* col, const void* val,
+                       const void* x, void* y, int64_t nrows, int64_t d,
+                       int64_t tpr, void* stream) {
+  if (nrows <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* p = static_cast<const int64_t*>(slice_ptr);
+  const auto* c = static_cast<const int32_t*>(col);
+  const auto* v = static_cast<const T*>(val);
+  const auto* xx = static_cast<const T*>(x);
+  auto* yy = static_cast<T*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (tpr) {
+    case 1: launch_tpr<T, 1>(p, c, v, xx, yy, nrows, d, st); break;
+    case 2: launch_tpr<T, 2>(p, c, v, xx, yy, nrows, d, st); break;
+    case 4: launch_tpr<T, 4>(p, c, v, xx, yy, nrows, d, st); break;
+    case 8: launch_tpr<T, 8>(p, c, v, xx, yy, nrows, d, st); break;
+    case 16: launch_tpr<T, 16>(p, c, v, xx, yy, nrows, d, st); break;
+    case 32: launch_tpr<T, 32>(p, c, v, xx, yy, nrows, d, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gravomg
+
+extern "C" {
+
+int gravomg_sliced_spmv_f32(const void* slice_ptr, const void* col,
+                            const void* val, const void* x, void* y,
+                            int64_t nrows, int64_t d, int64_t tpr,
+                            void* stream) {
+  return gravomg::launch_sliced_spmv<float>(slice_ptr, col, val, x, y, nrows,
+                                            d, tpr, stream);
+}
+
+int gravomg_sliced_spmv_f64(const void* slice_ptr, const void* col,
+                            const void* val, const void* x, void* y,
+                            int64_t nrows, int64_t d, int64_t tpr,
+                            void* stream) {
+  return gravomg::launch_sliced_spmv<double>(slice_ptr, col, val, x, y, nrows,
+                                             d, tpr, stream);
+}
+
+}  // extern "C"

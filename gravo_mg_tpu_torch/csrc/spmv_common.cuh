@@ -1,7 +1,8 @@
-// Shared launch constants for the slot-layout SpMV kernels
-// (shuffle_spmv.cu, diag_spmv.cu).  Both kernels run one thread per output
-// row and accumulate up to kCols right-hand-side columns per thread; wider
-// right-hand sides are split over gridDim.y.
+// Shared launch constants for the SpMV kernels (shuffle_spmv.cu,
+// diag_spmv.cu, sliced_spmv.cu): blocks of kThreads threads, each thread
+// accumulating up to kCols right-hand-side columns; wider right-hand sides
+// are split over gridDim.y.  shuffle_spmv and diag_spmv run one thread per
+// output row; sliced_spmv one or more (its TPR).
 #pragma once
 
 #include <cstdint>

@@ -1,9 +1,10 @@
 """ctypes loader for the native host-side setup kernels.
 
-The C++ sources are the JAX package's own (``gravo_mg_tpu/native/
-gravomg_native.cpp`` and ``ssp_native.cpp``), read by file path so the
-host C++ has one source of truth; importing ``gravo_mg_tpu`` would pull
-in JAX.  The library is built with g++ on first use into
+The C++ sources (``gravomg_native.cpp`` and ``ssp_native.cpp`` beside
+this file) are byte-identical copies of the JAX package's
+``gravo_mg_tpu/native/`` sources; the port builds only from its own
+copies (``tests/test_torch_host.py`` holds them equal, so the two host
+halves cannot drift).  The library is built with g++ on first use into
 ``gravo_mg_tpu_torch/_build/`` (rebuilt when a source is newer) and never
 written next to the sources.  There is no numpy fallback: if the library
 cannot be built, the loader raises.
@@ -20,8 +21,8 @@ import threading
 import numpy as np
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-_SRC_DIR = _PKG.parent / "gravo_mg_tpu" / "native"
-_SRCS = [_SRC_DIR / "gravomg_native.cpp", _SRC_DIR / "ssp_native.cpp"]
+_SRC_DIR = pathlib.Path(__file__).resolve().parent
+SOURCES = [_SRC_DIR / "gravomg_native.cpp", _SRC_DIR / "ssp_native.cpp"]
 _BUILD = _PKG / "_build"
 _SO = _BUILD / "libgravomg_native.so"
 
@@ -30,7 +31,7 @@ _lock = threading.Lock()
 
 
 def _build():
-    missing = [str(s) for s in _SRCS if not s.exists()]
+    missing = [str(s) for s in SOURCES if not s.exists()]
     if missing:
         raise RuntimeError(f"native sources not found: {missing}")
     _BUILD.mkdir(parents=True, exist_ok=True)
@@ -38,11 +39,11 @@ def _build():
     # may build at once, and a reader must never map a half-written file.
     # One compiler per source, all started together, then one link.
     tag = str(os.getpid())
-    objs = [_BUILD / f".{s.stem}.{tag}.o" for s in _SRCS]
+    objs = [_BUILD / f".{s.stem}.{tag}.o" for s in SOURCES]
     tmp = _BUILD / f".{_SO.name}.{tag}"
     flags = ["-O3", "-fopenmp", "-fPIC", "-std=c++17"]
     cmds = [["g++", *flags, "-c", str(s), "-o", str(o)]
-            for s, o in zip(_SRCS, objs)]
+            for s, o in zip(SOURCES, objs)]
     try:
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -72,7 +73,7 @@ def get_lib():
         if _lib is not None:
             return _lib
         if not _SO.exists() or any(
-            _SO.stat().st_mtime < s.stat().st_mtime for s in _SRCS
+            _SO.stat().st_mtime < s.stat().st_mtime for s in SOURCES
         ):
             _build()
         lib = ctypes.CDLL(str(_SO))

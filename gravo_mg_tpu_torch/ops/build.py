@@ -27,11 +27,14 @@ ARCH = "sm_90a"
 
 _SPMV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
 _DIAG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+_SLICED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 _SIGNATURES = {
     "gravomg_shuffle_spmv_f32": _SPMV_ARGS,
     "gravomg_shuffle_spmv_f64": _SPMV_ARGS,
     "gravomg_diag_spmv_f32": _DIAG_ARGS,
     "gravomg_diag_spmv_f64": _DIAG_ARGS,
+    "gravomg_sliced_spmv_f32": _SLICED_ARGS,
+    "gravomg_sliced_spmv_f64": _SLICED_ARGS,
 }
 
 _lib = None

@@ -105,9 +105,9 @@ def make_solver_mesh(n_partitions: int, device="cuda") -> SolverMesh:
     (the counterpart of the reference's single-process
     ``parallel/dist.py::make_solver_mesh``).  On a GPU every apply runs
     the kernels; CUDA without a GPU raises."""
-    from ..core import _resolve_device
+    from ..sparse import resolve_device
 
-    return SolverMesh(int(n_partitions), _resolve_device(device))
+    return SolverMesh(int(n_partitions), resolve_device(device))
 
 
 @dataclasses.dataclass

@@ -7,8 +7,9 @@ Counterpart of ``gravo_mg_tpu/parallel/multihost.py`` on
   ``torch.distributed.init_process_group``, idempotent, followed by one
   collective so that every rank has joined before the first batch of
   point-to-point transfers (NCCL requires the first ``batch_isend_irecv``
-  of a group to involve every rank).  The backend follows the device:
-  NCCL for CUDA, gloo for the CPU; CUDA tensors never go through gloo.
+  of a group to involve every rank).  The backend is NCCL unless the
+  caller asks for gloo (the CPU); CUDA tensors never go through gloo, and
+  no GPU means an error, not a quiet switch to the CPU.
 * **Mesh** (:func:`global_row_mesh`): ``partitions_per_rank`` row blocks
   on each rank, numbered process-major, so partition ``g`` lives on rank
   ``g // partitions_per_rank`` and consecutive row blocks share a rank;
@@ -57,14 +58,14 @@ def initialize(init_method: Optional[str] = None,
     """Join the process group (idempotent).
 
     Arguments default to ``env://`` and the ``WORLD_SIZE``/``RANK``
-    variables that ``torchrun`` sets.  ``backend`` defaults to NCCL where
-    a GPU is present and gloo otherwise.  With NCCL each rank takes the
-    GPU ``LOCAL_RANK`` (or ``rank % device_count``).
+    variables that ``torchrun`` sets.  ``backend`` defaults to NCCL, which
+    raises without a GPU; pass ``backend="gloo"`` to run on the CPU.  With
+    NCCL each rank takes the GPU ``LOCAL_RANK`` (or ``rank %
+    device_count``).
     """
     if dist.is_initialized():
         return
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend or "nccl"
     if backend == "nccl":
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'nccl' needs a GPU; none is available")

@@ -5,8 +5,8 @@ solverType 0/1 (Eigen/Pardiso sparse factorizations,
 multigrid_solver.cpp:1287-1366) as a host factorization (CHOLMOD when
 scikit-sparse is importable, SuperLU otherwise), and solverType 4 (Eigen
 CG, :1453-1477) as a Jacobi-preconditioned CG on the device whose operator
-is the whole LHS in ShuffleEll layout, so every iteration launches the
-``shuffle_spmv`` kernel on a GPU.
+is the whole LHS in SlicedEll layout, so every iteration launches the
+``sliced_spmv`` kernel on a GPU.
 """
 
 from __future__ import annotations
@@ -17,11 +17,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..sparse import ell_from_scipy, numpy_dtype, shuffle_from_scipy, spmv
+from ..sparse import (
+    ell_from_scipy, numpy_dtype, resolve_device, sliced_from_scipy, spmv,
+)
 
-# CG's operator falls back to transposed ELL when the ShuffleEll layout
-# would pad beyond max(24 nnz, PAD_FLOOR) slot lanes (the transfer cap of
-# MultigridSolveContext._build_transfer).
+# CG's operator falls back to transposed ELL when the SlicedEll layout
+# would store beyond max(PAD_FACTOR nnz, PAD_FLOOR) entries (the transfer
+# cap of MultigridSolveContext._build_transfer).
+PAD_FACTOR = 24
 PAD_FLOOR = 1 << 24
 # The host reads CG's residual norm (a device sync) every CHECK_EVERY
 # iterations only.
@@ -66,10 +69,10 @@ def direct_solve(lhs_csr, rhs: np.ndarray, timing: Optional[dict] = None):
 
 
 def cg_operator(lhs_csr, dtype=torch.float32):
-    """The CG operator: ShuffleEll, or transposed ELL where the shuffle
-    layout would pad beyond ``max(24 nnz, PAD_FLOOR)``."""
-    cap = max(24 * lhs_csr.nnz, PAD_FLOOR)
-    A = shuffle_from_scipy(lhs_csr, dtype=dtype, size_cap=cap)
+    """The CG operator: SlicedEll, or transposed ELL where the sliced
+    layout would store beyond ``max(PAD_FACTOR nnz, PAD_FLOOR)`` entries."""
+    cap = max(PAD_FACTOR * lhs_csr.nnz, PAD_FLOOR)
+    A = sliced_from_scipy(lhs_csr, dtype=dtype, size_cap=cap)
     return A if A is not None else ell_from_scipy(lhs_csr, dtype=dtype)
 
 
@@ -80,10 +83,12 @@ def cg_solve(
     max_iter: int = 10000,
     dtype=torch.float32,
     jacobi_precond: bool = True,
-    device="cpu",
+    device="cuda",
     timing: Optional[dict] = None,
 ):
-    """Jacobi-preconditioned conjugate gradients on ``device``.
+    """Jacobi-preconditioned conjugate gradients on ``device`` (``"cuda"``
+    by default, which raises without a GPU; ``"cpu"`` runs the plain
+    PyTorch SpMV).
 
     Stops at ``||b - A x|| <= tol * ||b||`` or after exactly ``max_iter``
     iterations (one operator apply each).  For an (n, d) right-hand side
@@ -96,7 +101,7 @@ def cg_solve(
     of the returned iterate in compute dtype, or of the recursion when
     max_iter ran out) and ``cg_ms``.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     A = cg_operator(lhs_csr.tocsr(), dtype).to(device)
     b = torch.from_numpy(np.ascontiguousarray(rhs, dtype=numpy_dtype(dtype)))
     b = b.to(device)

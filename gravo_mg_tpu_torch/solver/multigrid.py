@@ -34,12 +34,15 @@ from ..hierarchy.builder import Hierarchy
 from ..sparse import (
     DiagEll,
     EllMatrix,
-    ShuffleEll,
     ShuffleTransfer,
+    SlicedEll,
     diag_plan_arrays,
     numpy_dtype,
-    shuffle_from_scipy,
+    pick_tpr,
+    resolve_device,
     shuffle_plan_arrays,
+    sliced_from_scipy,
+    sliced_plan_arrays,
     spmv,
 )
 from .residual import residual_denominator, residual_numerator
@@ -50,7 +53,7 @@ from .smoothers import chebyshev, jacobi
 class LevelOps:
     """Per-level operator bundle used by the cycle."""
 
-    A: object                # DiagEll | ShuffleEll | EllMatrix
+    A: object                # DiagEll | SlicedEll | EllMatrix
     diag_inv: torch.Tensor
     lam_max: float
     U: object                # ShuffleTransfer | Prolongation
@@ -301,6 +304,8 @@ class MultigridSolveContext:
 
     ``diag_min_groups``: levels with at least this many 128-row groups are
     planned as DiagEll (the reference reads it from the environment).
+    ``device`` defaults to ``"cuda"``, which raises without a GPU; pass
+    ``"cpu"`` for the plain PyTorch SpMVs.
     """
 
     def __init__(
@@ -310,15 +315,16 @@ class MultigridSolveContext:
         mass_csr,
         cfg: SolverConfig,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
         diag_min_groups: int = 4096,
     ):
         self.hierarchy = hierarchy
         self.cfg = dataclasses.replace(cfg, num_levels=hierarchy.num_levels)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.diag_min_groups = int(diag_min_groups)
         self.timing: dict = {}
+        self.dispatched = 0    # cycles the last solve sent to the device
 
         t0 = time.perf_counter()
         self.lhs_csr = lhs_csr.tocsr()
@@ -326,7 +332,7 @@ class MultigridSolveContext:
         self.timing["setup_analyze"] = (time.perf_counter() - t0) * 1000
         t0 = time.perf_counter()
         self.mass_csr = mass_csr.tocsr()
-        self.M = shuffle_from_scipy(mass_csr, dtype=dtype).to(self.device)
+        self.M = sliced_from_scipy(mass_csr, dtype=dtype).to(self.device)
         minv = 1.0 / np.maximum(np.asarray(mass_csr.diagonal()), 1e-30)
         self.Minv_diag = torch.from_numpy(minv).to(self.device, dtype)
         self.timing["setup_mass"] = (time.perf_counter() - t0) * 1000
@@ -348,7 +354,7 @@ class MultigridSolveContext:
         # Per-level work bottoms out in native sorts that release the GIL.
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=2) as pool:
-            self._shuf_np = list(pool.map(
+            self._plans = list(pool.map(
                 lambda p: self._plan_level(*p), self._patterns
             ))
         self.timing["setup_shuffle_layout"] = (time.perf_counter() - t0) * 1000
@@ -366,7 +372,7 @@ class MultigridSolveContext:
         # sentinel K*N maps to an appended zero at nnz.
         t0 = time.perf_counter()
         self._csr_src = []
-        for k2, plan in enumerate(self._shuf_np):
+        for k2, plan in enumerate(self._plans):
             if plan[0] == "ell":
                 self._csr_src.append(None)
                 continue
@@ -387,7 +393,7 @@ class MultigridSolveContext:
                 csr_pos[pad] = chain[k2].nnz
             self._csr_src.append(csr_pos.reshape(src.shape))
         self.timing["setup_csr_src"] = (time.perf_counter() - t0) * 1000
-        self._dev_r: dict = {}
+        self._dev_pattern: dict = {}
 
         # --- values: fill layouts, spectral bounds, coarse inverse, upload
         self._reduce_and_upload(chain)
@@ -397,10 +403,11 @@ class MultigridSolveContext:
 
         Levels with >= ``diag_min_groups`` row groups get the DiagEll
         layout while its slot padding stays within the reference's traffic
-        bound against ShuffleEll (9 vs 17 bytes per slot lane, counted for
-        the TPU kernels, where ShuffleEll also round-trips z through HBM);
-        everything else uses ShuffleEll.  Layouts padding beyond
-        max(8 nnz, 2^24) fall back to transposed ELL.
+        bound against the ShuffleEll layout (9 vs 17 bytes per slot lane,
+        counted for the TPU kernels, where ShuffleEll also round-trips z
+        through HBM); everything else gets the SlicedEll layout.  Layouts
+        storing beyond max(8 nnz, 2^24) entries fall back to transposed
+        ELL.
         """
         n = idx.shape[1]
         s_groups = -(-n // 128)
@@ -410,48 +417,48 @@ class MultigridSolveContext:
             kp_d = dplan[2].shape[0]
             # Cheap accept first: kp_shuffle >= K, so passing the bound
             # against K proves it against the shuffle layout unbuilt.
-            if 9 * kp_d <= 2 * 17 * idx.shape[0]:
+            accept = 9 * kp_d <= 2 * 17 * idx.shape[0]
+            if not accept:
+                kp_s = shuffle_plan_arrays(idx, mask, n)[0].shape[0]
+                accept = 9 * kp_d <= 2 * 17 * kp_s
+            if accept:
                 plan = ("diag",) + dplan
-            else:
-                splan = shuffle_plan_arrays(idx, mask, n)
-                if 9 * kp_d <= 2 * 17 * splan[0].shape[0]:
-                    plan = ("diag",) + dplan
-                else:
-                    plan = ("shuf",) + splan
         if plan is None:
-            plan = ("shuf",) + shuffle_plan_arrays(idx, mask, n)
+            slice_ptr, col, src = sliced_plan_arrays(idx, mask, n)
+            plan = ("sliced", slice_ptr, col, src, pick_tpr(slice_ptr, n))
         nnz = int(np.asarray(mask).sum())
-        r_arr = plan[3] if plan[0] == "diag" else plan[2]
-        padded = r_arr.shape[0] * r_arr.shape[1] * 128
-        if padded > max(8 * nnz, 1 << 24):
+        stored = (plan[3] if plan[0] == "diag" else plan[2]).size
+        if stored > max(8 * nnz, 1 << 24):
             return ("ell",)
         return plan
 
-    def _level_rv(self, k, r_np, A):
-        """Device (KP, *, 128) lane/value tensors for level k's operator:
-        the padded values are gathered on the host in compute dtype; the
-        lane array depends only on the pattern and is uploaded once."""
+    def _level_tensors(self, k, pattern, A):
+        """Device tensors of level k's operator: its pattern arrays,
+        uploaded once (they do not change with the LHS values), and its
+        stored values, gathered on the host in compute dtype."""
         table = np.append(A.data, 0.0).astype(numpy_dtype(self.dtype), copy=False)
         v = torch.from_numpy(table[self._csr_src[k]]).to(self.device)
-        if k not in self._dev_r:
-            self._dev_r[k] = torch.from_numpy(r_np).to(self.device)
-        return self._dev_r[k], v
+        if k not in self._dev_pattern:
+            self._dev_pattern[k] = tuple(
+                torch.from_numpy(a).to(self.device) for a in pattern
+            )
+        return self._dev_pattern[k] + (v,)
 
     def _build_transfer(self, k_and_Ucsr):
-        """ShuffleTransfer for level k's U/U^T, or the hierarchy's
-        Prolongation (gather + index_add) where either shuffle layout
-        would pad beyond 24x nnz.  The finest U^T legitimately pads ~17x
-        at 1M rows, hence the loose cap."""
+        """SlicedEll pair for level k's U/U^T, or the hierarchy's
+        Prolongation (gather + index_add) where either layout would store
+        beyond max(24 nnz, 2^24) entries (a slice pads to its longest
+        row, so a layout stores at most 32 nnz)."""
         k, Ucsr = k_and_Ucsr
         cap = max(24 * Ucsr.nnz, 1 << 24)
-        U_sh = shuffle_from_scipy(Ucsr, dtype=self.dtype, size_cap=cap)
-        UT_sh = (
-            shuffle_from_scipy(Ucsr.T.tocsr(), dtype=self.dtype, size_cap=cap)
-            if U_sh is not None else None
+        U = sliced_from_scipy(Ucsr, dtype=self.dtype, size_cap=cap)
+        UT = (
+            sliced_from_scipy(Ucsr.T.tocsr(), dtype=self.dtype, size_cap=cap)
+            if U is not None else None
         )
-        if U_sh is None or UT_sh is None:
+        if U is None or UT is None:
             return self.hierarchy.levels[k].U.to(self.device, self.dtype)
-        return ShuffleTransfer(U_sh, UT_sh).to(self.device)
+        return ShuffleTransfer(U, UT).to(self.device)
 
     def _reduce_and_upload(self, chain):
         """Value-dependent half of setup: per-level layout values,
@@ -474,7 +481,7 @@ class MultigridSolveContext:
             t2 = time.perf_counter()
             lam = lambda_max_host(A, diag_inv_np)
             t3 = time.perf_counter()
-            plan = self._shuf_np[k]
+            plan = self._plans[k]
             if plan[0] == "ell":
                 idx, _mask = self._patterns[k]
                 A_dev = EllMatrix(
@@ -484,18 +491,13 @@ class MultigridSolveContext:
                 ).to(self.device)
             elif plan[0] == "diag":
                 _, start, tg, r, _src = plan
-                rj, vj = self._level_rv(k, r, A)
-                A_dev = DiagEll(
-                    torch.from_numpy(start).to(self.device), rj, vj,
-                    tg, A.shape[0], A.shape[1],
-                )
+                start_t, r_t, v_t = self._level_tensors(k, (start, r), A)
+                A_dev = DiagEll(start_t, r_t, v_t, tg, A.shape[0], A.shape[1])
             else:
-                _, q, r, _src = plan
-                rj, vj = self._level_rv(k, r, A)
-                A_dev = ShuffleEll(
-                    torch.from_numpy(q).to(self.device), rj, vj,
-                    A.shape[0], A.shape[1],
-                )
+                _, slice_ptr, col, _src, tpr = plan
+                ptr_t, col_t, v_t = self._level_tensors(k, (slice_ptr, col), A)
+                A_dev = SlicedEll(ptr_t, col_t, v_t, A.shape[0], A.shape[1],
+                                  int(A.nnz), tpr)
             diag_inv = torch.from_numpy(diag_inv_np).to(self.device, self.dtype)
             self._host_diag_inv.append(diag_inv_np)
             self.host_lam.append(lam)
@@ -618,6 +620,7 @@ class MultigridSolveContext:
             y2_ = x.double().cpu().numpy().reshape(rhs2.shape) + alpha[None, :]
             res = self.residual(rhs2, y2_, criteria=criteria)
             iters = 1
+            dispatched = 1
             convergence = [((time.perf_counter() - t0) * 1000, res)]
         else:
             A = self.levels[0].A
@@ -651,6 +654,8 @@ class MultigridSolveContext:
         elapsed = (time.perf_counter() - t0) * 1000
         self.timing["cycles"] = elapsed
         self.timing["iterations"] = float(iters)
+        # cycles sent to the device, the discarded lookahead cycle included
+        self.dispatched = dispatched
         self.timing["residue"] = res
         self.timing["solver_total"] = elapsed + self.timing.get("reduction", 0)
         y = x.double().cpu().numpy()

@@ -2,11 +2,17 @@
 
 Counterpart of ``gravo_mg_tpu/sparse.py``.  The host half (slot layouts,
 plan arrays, prolongation assembly) is numpy over the native C++ kernels
-and produces the same arrays as the reference.  The device half is plain
+and produces the same arrays as the reference, where the reference has
+the layout (SlicedEll is the port's own).  The device half is plain
 dataclasses of torch tensors with a ``.to(device)``:
 
+* :class:`SlicedEll` — rows in slices of 32, each slice as wide as its
+  longest row, column and value per entry; the layout of every
+  single-device operator except a DiagEll finest level; applied by
+  ``ops/sliced_spmv.py``;
 * :class:`ShuffleEll` — per (slot, 128-row group) one source block ``q``
-  plus a per-row lane ``r``; applied by ``ops/shuffle_spmv.py``;
+  plus a per-row lane ``r`` (the JAX package's TPU layout, kept for the
+  halo path, ``parallel/halo.py``); applied by ``ops/shuffle_spmv.py``;
 * :class:`DiagEll` — the source block is an arithmetic run within tiles
   of ``tg`` groups (``start`` table); applied by ``ops/diag_spmv.py``;
 * :class:`EllMatrix` — transposed padded rows, the planner's fallback for
@@ -26,11 +32,26 @@ import torch
 
 from .ops.diag_spmv import diag_spmv as _diag_kernel
 from .ops.shuffle_spmv import shuffle_spmv as _shuffle_kernel
+from .ops.sliced_spmv import SLICE
+from .ops.sliced_spmv import sliced_spmv as _sliced_kernel
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch floating dtype."""
     return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device to run on; CUDA must really be there."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path explicitly"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -121,6 +142,137 @@ class DiagEll:
         )
 
 
+@dataclasses.dataclass
+class SlicedEll:
+    """Sparse matrix in sliced-ELL layout (SELL-32): rows in slices of 32
+    (one warp on the card); slice ``s`` is ``w_s`` slots wide, ``w_s`` its
+    largest row degree, and entry (s, k, lane) of row ``32 s + lane``
+    sits at ``slice_ptr[s] + 32 k + lane``.  A row's entries keep their
+    CSR column order; padding has weight 0 and column 0.  ``tpr``
+    (threads per row on the card, a power of two up to 32) is chosen once
+    per operator by :func:`pick_tpr`."""
+
+    slice_ptr: torch.Tensor  # (n_slices + 1,) int64 entry offsets
+    col: torch.Tensor        # (E,) int32 column (padding: 0)
+    val: torch.Tensor        # (E,) values (padding: 0)
+    nrows: int
+    ncols: int
+    nnz: int
+    tpr: int
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    def to(self, device) -> "SlicedEll":
+        return dataclasses.replace(
+            self, slice_ptr=self.slice_ptr.to(device), col=self.col.to(device),
+            val=self.val.to(device),
+        )
+
+    def info(self) -> dict:
+        """Rows, slices, stored entries, nonzeros, padding factor
+        (entries / nnz), widest slice and threads per row."""
+        widths = torch.diff(self.slice_ptr.cpu()) // SLICE
+        entries = int(self.col.numel())
+        return {
+            "rows": self.nrows, "slices": int(widths.numel()),
+            "entries": entries, "nnz": self.nnz,
+            "padding": entries / max(self.nnz, 1),
+            "max_width": int(widths.max()) if widths.numel() else 0,
+            "threads_per_row": self.tpr,
+        }
+
+
+# pick_tpr's targets: the fewest threads a launch should have, and the
+# most slots a thread should walk on average (H100 sweeps of the 1M
+# Poisson operators, PERF.md).
+TPR_THREADS = 1 << 16
+TPR_SLOTS = 32
+
+
+def pick_tpr(slice_ptr: np.ndarray, nrows: int) -> int:
+    """Threads per row for a SlicedEll: doubled from 1 (up to 32) while the
+    launch has fewer than ``TPR_THREADS`` threads or a thread would walk
+    more than ``TPR_SLOTS`` slots on average, until a row's threads cover
+    the widest slice."""
+    slice_ptr = np.asarray(slice_ptr)
+    widths = np.diff(slice_ptr) // SLICE
+    wmax = int(widths.max()) if widths.size else 0
+    slots = int(slice_ptr[-1]) // SLICE if slice_ptr.size else 0   # over slices
+    t = 1
+    while t < SLICE and t < wmax and (nrows * t < TPR_THREADS
+                                      or slots > TPR_SLOTS * t * widths.size):
+        t *= 2
+    return t
+
+
+def _sliced_layout(indptr: np.ndarray, nrows: int):
+    """Slice offsets and entry destinations of a CSR row pattern.
+
+    Returns ``(slice_ptr (n_slices + 1,) int64, dest (nnz,) int64)``:
+    the ``j``-th entry of row ``i`` goes to ``slice_ptr[i // 32] + 32 j +
+    i % 32``."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    deg = np.diff(indptr)
+    n_slices = -(-nrows // SLICE)
+    padded = np.zeros(n_slices * SLICE, np.int64)
+    padded[:nrows] = deg
+    width = padded.reshape(n_slices, SLICE).max(axis=1, initial=0)
+    slice_ptr = np.zeros(n_slices + 1, np.int64)
+    np.cumsum(width * SLICE, out=slice_ptr[1:])
+    row = np.repeat(np.arange(nrows, dtype=np.int64), deg)
+    j = np.arange(indptr[-1], dtype=np.int64) - indptr[row]
+    dest = slice_ptr[row // SLICE] + j * SLICE + row % SLICE
+    return slice_ptr, dest
+
+
+def sliced_from_scipy(A, dtype=torch.float32,
+                      size_cap: int | None = None) -> SlicedEll | None:
+    """Convert any scipy sparse matrix to SlicedEll (host tensors);
+    duplicates are summed.  ``size_cap``: if the layout would store more
+    than this many entries, return None without materializing it."""
+    A = A.tocsr()
+    if not A.has_canonical_format:
+        A = A.copy()
+        A.sum_duplicates()
+    nr, nc = A.shape
+    slice_ptr, dest = _sliced_layout(A.indptr, nr)
+    entries = int(slice_ptr[-1])
+    if size_cap is not None and entries > size_cap:
+        return None
+    col = np.zeros(entries, np.int32)
+    val = np.zeros(entries, numpy_dtype(dtype))
+    col[dest] = A.indices
+    val[dest] = A.data
+    return SlicedEll(_tensor(slice_ptr), _tensor(col), _tensor(val), nr, nc,
+                     int(A.nnz), pick_tpr(slice_ptr, nr))
+
+
+def sliced_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
+    """SlicedEll layout of a transposed-ELL pattern (host numpy).
+
+    ``idx (K, N)`` column indices, ``mask (K, N)`` real-vs-padding; a
+    row's entries keep their slot order (CSR column order for a pattern
+    from a sorted csr matrix).  Returns ``(slice_ptr (n_slices + 1,)
+    int64, col (E,) int32, src (E,))`` where ``src`` indexes the flattened
+    (K*N,) ELL values, with K*N meaning padding (route to an appended
+    zero), as in :func:`shuffle_plan_arrays`."""
+    idx = np.asarray(idx)
+    k, n = idx.shape
+    row, slot = np.nonzero(np.asarray(mask, dtype=bool).T)   # row-major
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=n), out=indptr[1:])
+    slice_ptr, dest = _sliced_layout(indptr, n)
+    entries = int(slice_ptr[-1])
+    col = np.zeros(entries, np.int32)
+    col[dest] = idx[slot, row]
+    src_dtype = np.int32 if k * n < 2**31 else np.int64
+    src = np.full(entries, k * n, src_dtype)
+    src[dest] = slot.astype(np.int64) * n + row
+    return slice_ptr, col, src
+
+
 def _check_cols(A, x):
     if x.shape[0] != A.ncols:
         raise ValueError(f"x has {x.shape[0]} rows, operator has {A.ncols} columns")
@@ -133,6 +285,8 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     if callable(A):
         return A(x)
     _check_cols(A, x)
+    if isinstance(A, SlicedEll):
+        return _sliced_kernel(A.slice_ptr, A.col, A.val, x, A.nrows, A.tpr)
     if isinstance(A, ShuffleEll):
         return _shuffle_kernel(A.q, A.r, A.v, x, A.nrows)
     if isinstance(A, DiagEll):
@@ -288,11 +442,12 @@ def shuffle_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
 
 @dataclasses.dataclass
 class ShuffleTransfer:
-    """Grid-transfer pair in shuffle-ELL form: U (prolong) and U^T
-    (restrict), both gather-formulated SpMVs."""
+    """Grid-transfer pair: U (prolong) and U^T (restrict), both
+    gather-formulated SpMVs applied through :func:`spmv`, so any layout
+    works (SlicedEll on a single device, ShuffleEll on the halo path)."""
 
-    U: ShuffleEll
-    UT: ShuffleEll
+    U: object   # SlicedEll | ShuffleEll | callable
+    UT: object
 
     @property
     def ncoarse(self):

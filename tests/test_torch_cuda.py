@@ -7,8 +7,10 @@ so on a GPU machine without JAX it runs as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: relative to the largest output entry, 1e-5 in f32 and 1e-12
-in f64 (the kernel sums slots in ascending order, the plain version in
-torch's reduction order).
+in f64 (the kernels sum slots in their own order, the plain versions in
+torch's reduction order).  Single-device solves go through sliced_spmv
+(and diag_spmv where a level is DiagEll), the halo path through
+shuffle_spmv.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from gravo_mg_tpu_torch import MultigridSolver, sparse
 from gravo_mg_tpu_torch.ops import diag_spmv as dmod
 from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
+from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
 from gravo_mg_tpu_torch.utils.laplacian import cotan_laplacian, mass_voronoi
 from gravo_mg_tpu_torch.utils.meshgen import icosphere
 from gravo_mg_tpu_torch.utils.neighbors import neighbors_from_faces
@@ -96,6 +99,45 @@ def test_shuffle_kernel_matches_plain(cuda, n, m, nnz, bw, seed, dtype, d):
     _close(y, host, dtype)
 
 
+SLICED_MATRICES = MATRICES + [
+    (200, 77, 500, None, 9),        # ncols not a multiple of 32
+    (300, 300, 0, None, 10),        # every slice empty (filled below)
+]
+
+
+def _sliced_matrix(n, m, nnz, bw, seed):
+    rows, cols, vals = _coo(n, m, nnz, bw, seed)
+    if nnz == 0:    # four rows of 40 entries; the other slices stay empty
+        rows = np.repeat(np.array([5, 70, 130, 290]), 40)
+        cols = np.tile(np.arange(40) * 7, 4)
+        vals = np.random.default_rng(seed).standard_normal(rows.size)
+    return sp.coo_matrix((vals, (rows, cols)), shape=(n, m)).tocsr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tpr", [1, 2, 8, 32])
+@pytest.mark.parametrize("d", [1, 3, 6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,nnz,bw,seed", SLICED_MATRICES)
+def test_sliced_kernel_matches_plain(cuda, n, m, nnz, bw, seed, dtype, d, tpr):
+    """Both variants (one thread per row, and 2/8/32 threads per row with
+    the shuffle reduction) against the plain version and a host f64
+    product."""
+    A = _sliced_matrix(n, m, nnz, bw, seed)
+    op = sparse.sliced_from_scipy(A, dtype=dtype).to(cuda)
+    x = _x(m, d, dtype, seed, cuda)
+    before = slmod.launches
+    y = slmod.sliced_spmv(op.slice_ptr, op.col, op.val, x, n, tpr)
+    torch.cuda.synchronize()
+    assert slmod.launches == before + 1
+    ref = slmod.sliced_spmv_plain(op.slice_ptr, op.col, op.val, x, n)
+    assert y.shape == ref.shape and y.dtype == dtype
+    _close(y, ref, dtype)
+    host = torch.from_numpy(A @ x.double().cpu().numpy()).to(cuda, dtype)
+    _close(y, host, dtype)
+    _close(sparse.spmv(op, x), host, dtype)     # the operator's own tpr
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -134,10 +176,25 @@ def test_wrappers_validate_operands(cuda):
         smod.shuffle_spmv(q.cpu(), r, v, x, 100)
     with pytest.raises(ValueError):
         dmod.diag_spmv(q[:1], r, v, x, 3, 100)
+    ptr = torch.zeros(5, dtype=torch.int64, device=cuda)
+    col = torch.zeros(0, dtype=torch.int32, device=cuda)
+    val = torch.zeros(0, device=cuda)
+    with pytest.raises(TypeError):
+        slmod.sliced_spmv(ptr.int(), col, val, x, 100)
+    with pytest.raises(TypeError):
+        slmod.sliced_spmv(ptr, col, val, x.double(), 100)
+    with pytest.raises(ValueError):
+        slmod.sliced_spmv(ptr, col, val, x, 200)      # 7 slices, 4 given
+    with pytest.raises(ValueError):
+        slmod.sliced_spmv(ptr, col, val, x, 100, tpr=3)
+    with pytest.raises(ValueError):
+        slmod.sliced_spmv(ptr.cpu(), col, val, x, 100)
 
 
 @pytest.mark.cuda
 def test_solve_on_cuda_goes_through_both_kernels(cuda):
+    """sliced_spmv and diag_spmv (levels of >= 16 row groups are DiagEll),
+    and no shuffle_spmv: that kernel serves the halo path only."""
     V, F = icosphere(4, bump=0.1)
     S, M, neigh = cotan_laplacian(V, F), mass_voronoi(V, F), neighbors_from_faces(F)
     lhs = (M + 1e-3 * S).tocsr()
@@ -146,16 +203,16 @@ def test_solve_on_cuda_goes_through_both_kernels(cuda):
     for device in ("cpu", "cuda"):
         solver = MultigridSolver(V, neigh, M, lower_bound=100, device=device,
                                  diag_min_groups=16)
-        smod.launches = dmod.launches = 0
+        smod.launches = dmod.launches = slmod.launches = 0
         x = solver.solve(lhs, rhs)
         runs[device] = (solver.solver_timing["iterations"],
                         solver.residual(lhs, rhs, x),
-                        smod.launches, dmod.launches)
-    iters, res, n_shuffle, n_diag = runs["cuda"]
+                        slmod.launches, dmod.launches, smod.launches)
+    iters, res, n_sliced, n_diag, n_shuffle = runs["cuda"]
     assert iters == runs["cpu"][0]
     assert res <= 1e-4
-    assert n_shuffle > 0 and n_diag > 0
-    assert runs["cpu"][2:] == (0, 0)
+    assert n_sliced > 0 and n_diag > 0 and n_shuffle == 0
+    assert runs["cpu"][2:] == (0, 0, 0)
 
 
 def _torus(nu, nv):
@@ -173,10 +230,10 @@ def test_cg_on_cuda_launches_shuffle_and_meets_tol(cuda):
     V, F, S, M, neigh = _torus(256, 256)          # 65536 vertices
     lhs = (M + 1e-3 * S).tocsr()
     rhs = M @ np.random.default_rng(42).standard_normal((len(V), 3))
-    smod.launches = 0
+    slmod.launches = 0
     timing = {}
     x = cg_solve(lhs, rhs, tol=1e-4, max_iter=2000, device=cuda, timing=timing)
-    assert smod.launches >= timing["cg_iterations"] > 0
+    assert slmod.launches >= timing["cg_iterations"] > 0
     assert np.linalg.norm(lhs @ x - rhs) <= 1.1e-4 * np.linalg.norm(rhs)
 
 
@@ -195,10 +252,10 @@ def test_min_quad_on_cuda_matches_cpu(cuda):
     for device in ("cpu", "cuda"):
         solver = MultigridSolver(V, neigh, M, lower_bound=200, device=device,
                                  diag_min_groups=16)
-        smod.launches = dmod.launches = 0
+        slmod.launches = dmod.launches = 0
         mq = MinQuadWithFixedMG(solver, lhs, known, tol=1e-4, max_iter=20,
                                 criteria=2)
-        out[device] = mq.solve(B, Y)[0], smod.launches, dmod.launches
+        out[device] = mq.solve(B, Y)[0], slmod.launches, dmod.launches
     x_cpu, x_gpu = out["cpu"][0], out["cuda"][0]
     assert np.array_equal(x_gpu[known], Y)
     assert np.linalg.norm(x_gpu - x_cpu) <= 1e-4 * np.linalg.norm(x_cpu)
@@ -218,9 +275,9 @@ def test_sig21_solve_on_cuda_goes_through_both_kernels(cuda):
                              diag_min_groups=16)
     solver.construct_sig21_hierarchy(F)
     solver.toggle_hierarchy(Hierarchy.SIG21)
-    smod.launches = dmod.launches = 0
+    slmod.launches = dmod.launches = 0
     x = solver.solve(lhs, rhs)
-    assert smod.launches > 0 and dmod.launches > 0
+    assert slmod.launches > 0 and dmod.launches > 0
     assert solver.residual(lhs, rhs, x) <= 1e-4
 
 
@@ -231,9 +288,9 @@ def test_f64_smoothing_to_1e12_on_cuda(cuda):
                              dtype=torch.float64, device=cuda)
     lhs = (M + 1e-3 * S).tocsr()
     rhs = M @ np.random.default_rng(0).standard_normal(len(V))
-    smod.launches = 0
+    slmod.launches = 0
     x = solver.solve(lhs, rhs)
-    assert smod.launches > 0
+    assert slmod.launches > 0
     assert solver.residual(lhs, rhs, x) < 1e-12
     assert solver.solver_timing["iterations"] <= 40
 
@@ -264,9 +321,9 @@ def test_halo_solve_on_cuda_matches_single_device(cuda, halo_torus, D, dtype, d)
     ctx = solver._context(lhs)
     x1, it1, _, _ = ctx.solve(rhs, tol=tol, max_iter=50)
     hctx = HaloContext(ctx, make_solver_mesh(D, cuda))
-    smod.launches = dmod.launches = 0
+    smod.launches = dmod.launches = slmod.launches = 0
     x2, it2, res = hctx.solve(rhs, tol=tol, max_iter=50)
-    assert smod.launches > 0 and dmod.launches == 0
+    assert smod.launches > 0 and dmod.launches == 0 and slmod.launches == 0
     assert res <= tol and abs(it1 - it2) <= 1
     rel = 1e-4 if dtype == torch.float32 else 1e-9
     assert np.abs(x1 - x2).max() <= rel * np.abs(x1).max()

@@ -6,8 +6,9 @@
   right-hand side takes inner products over the whole array, as JAX's.
 * ``max_iter`` is honoured exactly: one operator apply per iteration and
   no more (the JAX package runs whole 500-iteration chunks).
-* A matrix with one dense row pads past the size cap and takes the
-  transposed-ELL operator.
+* A matrix with one dense row pads only its own 32-row slice of the
+  SlicedEll operator; past the size cap CG takes the transposed-ELL one.
+* Without ``device``, CG runs on the card and raises where there is none.
 """
 
 import jax.numpy as jnp
@@ -17,8 +18,8 @@ import scipy.sparse as sp
 import torch
 
 from gravo_mg_tpu.solver import direct as ref_direct
-from gravo_mg_tpu_torch import EllMatrix, MultigridSolver, ShuffleEll
-from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
+from gravo_mg_tpu_torch import EllMatrix, MultigridSolver, SlicedEll
+from gravo_mg_tpu_torch.ops import sliced_spmv as smod
 from gravo_mg_tpu_torch.solver import direct
 
 torch.set_num_threads(2)
@@ -37,7 +38,7 @@ def test_cg_meets_tol_and_matches_reference(sphere_mesh, cols, tol):
     lhs = (m["M"] + 1e-3 * m["S"]).tocsr()
     rhs = _rhs(m, cols)
     timing = {}
-    x = direct.cg_solve(lhs, rhs, tol=tol, timing=timing)
+    x = direct.cg_solve(lhs, rhs, tol=tol, device="cpu", timing=timing)
     assert x.shape == rhs.shape and x.dtype == np.float32
     res = np.linalg.norm(lhs @ x.astype(np.float64) - rhs) / np.linalg.norm(rhs)
     assert res <= 1.1 * tol, res
@@ -52,16 +53,16 @@ def test_cg_honours_max_iter_exactly(sphere_mesh, max_iter, monkeypatch):
     m = sphere_mesh
     lhs = (1e-6 * m["M"] + m["S"]).tocsr()    # far from 1e-10 in max_iter
     calls = []
-    plain = smod.shuffle_spmv_plain
+    plain = smod.sliced_spmv_plain
 
     def counting(*args):
         calls.append(1)
         return plain(*args)
 
-    monkeypatch.setattr(smod, "shuffle_spmv_plain", counting)
+    monkeypatch.setattr(smod, "sliced_spmv_plain", counting)
     timing = {}
     x = direct.cg_solve(lhs, _rhs(m, 1), tol=1e-10, max_iter=max_iter,
-                        timing=timing)
+                        device="cpu", timing=timing)
     assert np.isfinite(x).all()
     assert timing["cg_iterations"] == max_iter
     assert len(calls) == max_iter
@@ -76,19 +77,33 @@ def test_cg_dense_row_takes_ell_path(monkeypatch):
     A[0, 2:] = 1e-3                          # one dense row (and column)
     A[2:, 0] = 1e-3
     A = A.tocsr()
-    assert isinstance(direct.cg_operator(A), ShuffleEll)
+    op = direct.cg_operator(A)
+    assert isinstance(op, SlicedEll)
+    info = op.info()
+    # the dense row widens its own slice only: 32 rows x n slots
+    assert info["max_width"] == n
+    assert info["entries"] == 32 * n + 32 * 4 * (info["slices"] - 1)
     monkeypatch.setattr(direct, "PAD_FLOOR", 1 << 12)
+    monkeypatch.setattr(direct, "PAD_FACTOR", 4)
     assert isinstance(direct.cg_operator(A), EllMatrix)
     b = np.random.default_rng(0).standard_normal(n)
-    x = direct.cg_solve(A, b, tol=1e-5)
+    x = direct.cg_solve(A, b, tol=1e-5, device="cpu")
     assert np.linalg.norm(A @ x - b) <= 1.1e-5 * np.linalg.norm(b)
 
 
 def test_cg_zero_rhs_returns_zero(sphere_mesh):
     lhs = sphere_mesh["S"] + sphere_mesh["M"]
     timing = {}
-    x = direct.cg_solve(lhs.tocsr(), np.zeros(lhs.shape[0]), timing=timing)
+    x = direct.cg_solve(lhs.tocsr(), np.zeros(lhs.shape[0]), device="cpu",
+                        timing=timing)
     assert not x.any() and timing["cg_iterations"] == 0
+
+
+def test_cg_defaults_to_cuda_and_raises_without_gpu(sphere_mesh, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lhs = (sphere_mesh["S"] + sphere_mesh["M"]).tocsr()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        direct.cg_solve(lhs, np.ones(lhs.shape[0]))
 
 
 def test_facade_cg_and_direct(sphere_mesh):

@@ -189,3 +189,20 @@ def test_port_imports_and_solves_without_jax():
                          text=True, timeout=300, env=env, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "OK 642" in res.stdout
+
+
+def test_native_sources_are_the_ports_own_copies():
+    """The native loader builds only from sources inside the port, and
+    those are byte-identical to the JAX package's, so the two host halves
+    cannot drift apart."""
+    from gravo_mg_tpu_torch import native
+
+    pkg = os.path.join(REPO, "gravo_mg_tpu_torch")
+    assert [os.path.basename(s) for s in native.SOURCES] == [
+        "gravomg_native.cpp", "ssp_native.cpp"]
+    for src in native.SOURCES:
+        src = os.path.realpath(src)
+        assert os.path.commonpath([src, pkg]) == pkg, src
+        with open(src, "rb") as f, open(os.path.join(
+                REPO, "gravo_mg_tpu", "native", os.path.basename(src)), "rb") as g:
+            assert f.read() == g.read(), src

@@ -112,6 +112,23 @@ def test_one_process_gloo_world(tmp_path):
     _spawn(tmp_path, world=1, ppr=4)
 
 
+def test_initialize_defaults_to_nccl_and_raises_without_gpu(tmp_path, monkeypatch):
+    """No backend named means NCCL: without a GPU that raises before any
+    process group exists, instead of quietly running gloo on the CPU."""
+    import pytest
+    import torch
+    import torch.distributed as dist
+
+    from gravo_mg_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="nccl"):
+        multihost.initialize(init_method=f"file://{tmp_path / 'rendezvous'}",
+                             world_size=1, rank=0)
+    assert not dist.is_initialized()
+
+
 def test_order_steps_dcn_first():
     from gravo_mg_tpu_torch.parallel.multihost import order_steps_dcn_first
 

@@ -139,7 +139,8 @@ def test_port_solves_on_reference_sig21_hierarchy(sphere_mesh):
     ref_ctx = ref_mg.MultigridSolveContext(ref_h, lhs, m["M"],
                                            ref_mg.SolverConfig())
     _, ref_iters, _, _ = ref_ctx.solve(rhs, tol=1e-4, max_iter=100)
-    ctx = mg.MultigridSolveContext(conv, lhs, m["M"], mg.SolverConfig())
+    ctx = mg.MultigridSolveContext(conv, lhs, m["M"], mg.SolverConfig(),
+                                   device="cpu")
     x, iters, res, _ = ctx.solve(rhs, tol=1e-4, max_iter=100)
     assert iters == ref_iters and res <= 1e-4
     assert x.shape == rhs.shape and ctx.residual(rhs, x) <= 2e-4

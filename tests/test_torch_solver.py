@@ -90,7 +90,7 @@ def test_facade_solve_matches_reference(medium_mesh, case, monkeypatch):
     assert port.residual(lhs, rhs, x) <= 1e-4
     ctx = next(iter(port._contexts.values()))
     kinds = {type(lvl.A).__name__ for lvl in ctx.levels}
-    assert kinds == ({"DiagEll"} if case == "diag_levels" else {"ShuffleEll"})
+    assert kinds == ({"DiagEll"} if case == "diag_levels" else {"SlicedEll"})
 
 
 def test_facade_reuses_context_and_updates_values(sphere_mesh):
@@ -113,6 +113,16 @@ def test_cuda_device_raises_without_gpu(sphere_mesh, monkeypatch):
     m = sphere_mesh
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         MultigridSolver(m["V"], m["neigh"], m["M"])   # device="cuda" default
+
+
+def test_solve_context_defaults_to_cuda_and_raises_without_gpu(
+        sphere_mesh, ref_hierarchy, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = sphere_mesh
+    lhs, _ = _system(m)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        mg.MultigridSolveContext(convert.hierarchy_from_reference(ref_hierarchy),
+                                 lhs, m["M"], mg.SolverConfig())
 
 
 @pytest.mark.parametrize("poisson", [False, True])

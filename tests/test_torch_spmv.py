@@ -148,6 +148,7 @@ def test_cuda_wrappers_refuse_non_cpu_devices_without_fallback():
     else goes to the kernel path, which validates and never falls back."""
     from gravo_mg_tpu_torch.ops import diag_spmv as dmod
     from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
+    from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
 
     x = torch.zeros(4, device="meta")
     q = torch.zeros((4, 8), dtype=torch.int32)
@@ -157,3 +158,6 @@ def test_cuda_wrappers_refuse_non_cpu_devices_without_fallback():
         smod.shuffle_spmv(q, r, v, x, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         dmod.diag_spmv(torch.zeros((1, 4), dtype=torch.int32), r, v, x, 8, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        slmod.sliced_spmv(torch.zeros(2, dtype=torch.int64),
+                          torch.zeros(0, dtype=torch.int32), torch.zeros(0), x, 4)

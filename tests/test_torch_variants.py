@@ -115,7 +115,7 @@ def test_port_solves_on_reference_sig06_hierarchy(sphere_mesh):
                                            ref_mg.SolverConfig())
     _, ref_iters, _, _ = ref_ctx.solve(rhs, tol=1e-6, max_iter=50)
     ctx = mg.MultigridSolveContext(convert.hierarchy_from_reference(ref_h),
-                                   lhs, m["M"], mg.SolverConfig())
+                                   lhs, m["M"], mg.SolverConfig(), device="cpu")
     x, iters, res, _ = ctx.solve(rhs, tol=1e-6, max_iter=50)
     assert iters == ref_iters and res <= 1e-6
     assert ctx.residual(rhs, x) <= 1e-6
