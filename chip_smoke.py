@@ -6,21 +6,25 @@
 Phases (each prints its own lines, with the kernel launch counts of that
 phase, counted from 0; any failure exits non-zero before the last line):
 
-1. build: the native host library (g++) and the three CUDA kernels
+1. build: the native host library (g++) and the four CUDA kernels
    (nvcc, sm_90a) from the sources in this checkout, all compilers at once;
 2. kernels: each kernel against its plain PyTorch version on the card at
    real operator shapes, d = 1 and 3, f32 (plus one f64 check each), with
    times and bounds: every SlicedEll operator of the 1M Poisson context
-   (A1-A3, U0-U3, U0^T-U3^T, M), CG's operator (the whole 1M ``M + 1e-3
-   S``) and the finest U0^T of the 262k SIG21 hierarchy through
-   sliced_spmv, each beside the same operator in the JAX package's
-   ShuffleEll layout through shuffle_spmv (the route it replaced), both
-   plain versions and a cuSPARSE CSR product (``library_ms``, a yardstick
-   the port never calls), timed in turns (device time from torch.profiler,
-   beside CUDA events), with the bound, every threads-per-row variant of
-   sliced_spmv, and the sums over one 1M V-cycle; A0 (DiagEll) through
-   diag_spmv and cuSPARSE; the halo phase's stacked interior A0 (4
-   partitions, one ShuffleEll) through shuffle_spmv;
+   (A1-A3, U0-U3, U0^T-U3^T, M), CG's operator as SlicedEll and the finest
+   U0^T of the 262k SIG21 hierarchy through sliced_spmv, each beside the
+   same operator in the JAX package's ShuffleEll layout through
+   shuffle_spmv (the route it replaced), both plain versions and a
+   cuSPARSE CSR product (``library_ms``, a yardstick the port never
+   calls), timed in turns (device time from torch.profiler, beside CUDA
+   events), with the bound, every threads-per-row variant of sliced_spmv,
+   and the sums over one 1M V-cycle; the SlicedDiag operators (A0, CG's
+   operator, MinQuad's finest level) through both variants of
+   sliced_diag_spmv, beside diag_spmv on A0's DiagEll (the route they
+   replaced, built here), cuSPARSE and the plain version, with bytes per
+   apply, the layout's bound and the format-neutral one; the halo phase's
+   stacked interior A0 (4 partitions, one ShuffleEll) through
+   shuffle_spmv and cuSPARSE;
 3. smoothing: the 10k icosphere(5, bump=0.15) smoothing solve
    (M + 1e-3 S, rhs M @ V) through MultigridSolver(device="cuda"),
    checked against a host direct solve;
@@ -34,8 +38,9 @@ phase, counted from 0; any failure exits non-zero before the last line):
    against phase poisson's solution, one warm solve under torch.profiler;
 5. cg: ``solver.cg_solve`` on the same torus, lhs M + 1e-3 S, rhs
    M @ randn (seed 42), tol 1e-4, max_iter 2000;
-6. minquad: MinQuadWithFixedMG on that solver, lhs S + 1e-3 M, 5% of the
-   vertices known, criterion 2, tol 1e-4, max_iter 20;
+6. minquad: MinQuadWithFixedMG on that solver (built with the 1M system,
+   before phase kernels), lhs S + 1e-3 M, 5% of the vertices known,
+   criterion 2, tol 1e-4, max_iter 20;
 7. flow: three ConformalFlow steps on the 1M torus (tau 1e-3, tol 1e-4,
    f64: f32's residual floor on this system is above 1e-4), one solver
    context throughout;
@@ -54,6 +59,7 @@ exits non-zero.
 import atexit
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -63,6 +69,7 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sp
 
 TOL_F32 = 1e-5    # kernel vs plain, relative to max |y|
 TOL_F64 = 1e-12
@@ -139,11 +146,14 @@ def time_in_turns(fns, order, reps=20):
             {k: sum(v) / len(v) for k, v in device.items()})
 
 
-def spmv_bound(nnz, nrows, ncols, d, itemsize):
-    """(least ms, what bounds it) of y = A x on this card: each stored
-    nonzero read once as (int32 column, value), x and y once each, against
-    2 nnz d operations at the card's peak non-tensor rate."""
-    nbytes = nnz * (4 + itemsize) + (nrows + ncols) * d * itemsize
+def spmv_bound(nnz, nrows, ncols, d, itemsize, matrix_bytes=None):
+    """(least ms, what bounds it) of y = A x on this card: the matrix read
+    once (``matrix_bytes``; by default each nonzero as an int32 column and
+    a value, the format-neutral count), x and y once each, against 2 nnz d
+    operations at the card's peak non-tensor rate."""
+    if matrix_bytes is None:
+        matrix_bytes = nnz * (4 + itemsize)
+    nbytes = matrix_bytes + (nrows + ncols) * d * itemsize
     flops = 2 * nnz * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (FP32_FLOPS if itemsize == 4 else FP64_FLOPS) * 1e3
@@ -179,7 +189,7 @@ class Launches:
     """Per-phase kernel launch counts (reset to 0 before each phase) and
     their sum over the solve phases."""
 
-    NAMES = ("sliced_spmv", "diag_spmv", "shuffle_spmv")
+    NAMES = ("sliced_spmv", "diag_spmv", "shuffle_spmv", "sliced_diag_spmv")
 
     def __init__(self, *mods):
         self.mods = dict(zip(self.NAMES, mods))
@@ -241,8 +251,10 @@ def trace_summary(prof, label, cycles):
     comp_us = us(comp)
     per = max(cycles, 1)
     spmv = []
-    for name in ("sliced_spmv", "diag_spmv", "shuffle_spmv"):
-        evs = [e for e in comp if f"{name}_kernel" in e.name]
+    for name in Launches.NAMES:
+        # whole identifier: diag_spmv_kernel is inside sliced_diag_spmv_kernel
+        pat = re.compile(rf"(?<![A-Za-z_]){name}_kernel")
+        evs = [e for e in comp if pat.search(e.name)]
         spmv.append(f"{name} {len(evs) / per:.1f} launches {us(evs) / 1000 / per:.4f} "
                     f"ms per cycle (share {us(evs) / max(comp_us, 1e-9):.3f})")
     return (f"{len(kern)} kernel events ({len(nccl)} NCCL, {us(nccl) / 1000:.3f} ms); "
@@ -272,13 +284,16 @@ def main():
     from gravo_mg_tpu_torch.ops import build
     from gravo_mg_tpu_torch.ops import diag_spmv as dmod
     from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
+    from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
     from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
     from gravo_mg_tpu_torch.parallel.halo import (
         PartitionedOp, _build_dist_op, make_solver_mesh, partition_rows,
     )
     from gravo_mg_tpu_torch.solver.direct import cg_operator
+    from gravo_mg_tpu_torch.solver.multigrid import _ell_pattern, _ell_values
     from gravo_mg_tpu_torch.sparse import (
-        DiagEll, ShuffleTransfer, SlicedEll, shuffle_from_scipy, sliced_from_scipy,
+        DiagEll, ShuffleTransfer, SlicedDiag, SlicedEll, diag_plan_arrays,
+        shuffle_from_scipy, sliced_bytes, sliced_diag_bytes, sliced_from_scipy,
     )
     from gravo_mg_tpu_torch.utils.laplacian import (
         cotan_laplacian, mass_barycentric, mass_voronoi,
@@ -302,7 +317,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     dev = torch.device("cuda")
-    counts = Launches(slmod, dmod, smod)
+    counts = Launches(slmod, dmod, smod, sdmod)
     trace_dir = tempfile.mkdtemp(prefix="gravo_trace_")
     atexit.register(shutil.rmtree, trace_dir, True)
 
@@ -359,9 +374,28 @@ def main():
         A0_stacked = PartitionedOp(
             _build_dist_op(ctx.chain_csr[0], 4, nl0, nl0, ctx.dtype),
             make_solver_mesh(4, "cuda"), P0, P0, ctx.dtype).A
+        # MinQuad's reduced context (phase minquad; its finest level is a
+        # phase-kernels operator)
+        rng3 = np.random.default_rng(3)
+        known = rng3.choice(n, size=n // 20, replace=False)
+        Y = rng3.standard_normal(known.size)
+        B = M @ rng3.standard_normal(n)
+        lhs_mq = (S + 1e-3 * M).tocsr()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        mq = MinQuadWithFixedMG(solver, lhs_mq, known, tol=1e-4, max_iter=20,
+                                criteria=2)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        # held through phase poisson; its peak is also given without it
+        mq_mib = (torch.cuda.memory_allocated() - resident) / 2**20
         log(f"1M system: n={n} nnz={lhs.nnz} mesh+operators {t_mesh:.2f} s, "
             f"hierarchy {t_hier:.2f} s, setup {t_setup:.2f} s; "
-            f"CG operator {type(A_cg).__name__}")
+            f"CG operator {type(A_cg).__name__}; MinQuad precompute {t_pre:.2f} s")
+        log("1M system: setup ms " + ", ".join(
+            f"{k} {ctx.timing[k]:.0f}" for k in (
+                "setup_shuffle_layout", "setup_transfers", "setup_csr_src",
+                "reduction", "plan_build") if k in ctx.timing))
         log(f"poisson-setup: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("poisson-setup", exc)
@@ -418,7 +452,10 @@ def main():
     for k, t in enumerate(ctx.transfers):
         sliced_cases += [(f"U{k}T", t.UT, ctx.U_csr[k].T.tocsr()),
                          (f"U{k}", t.U, ctx.U_csr[k])]
-    sliced_cases += [("M", ctx.M, ctx.mass_csr), ("CG M+1e-3S", A_cg, lhs_cg),
+    # CG's operator is SlicedDiag (the byte rule); its SlicedEll layout
+    # stays here as the sliced route's largest case
+    sliced_cases += [("M", ctx.M, ctx.mass_csr),
+                     ("CG M+1e-3S", sliced_from_scipy(lhs_cg).to(dev), lhs_cg),
                      ("SIG21-262k U0T", sig21_U0T, sig21_UT_csr)]
     kinfo = {name: {"err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
                     "bound_by": None, "library_ms": None}
@@ -542,79 +579,159 @@ def main():
             f"{cycle['new MB']:.1f} MB of sliced (col, val) against {cycle['old MB']:.1f} "
             "MB of ShuffleEll (v, r)")
 
-        # A0 through diag_spmv, beside cuSPARSE
-        A = ctx.levels[0].A
-        if not isinstance(A, DiagEll):
-            raise AssertionError(f"A0 is a {type(A).__name__}, not DiagEll")
-        lib = csr_tensor(ctx.chain_csr[0], torch.float32, dev)
-        nnz0 = ctx.chain_csr[0].nnz
-        log(f"phase kernels: A0 rows {A.nrows} nnz {nnz0} DiagEll {tuple(A.r.shape)} "
-            f"tg {A.tg} ({A.r.numel() / nnz0:.2f}x nnz)")
-        for d in (1, 3):
-            xs = rng.standard_normal((A.ncols,) if d == 1 else (A.ncols, d))
-            x = torch.from_numpy(xs).to(dev, torch.float32)
-            fns = {
-                "kernel": lambda: dmod.diag_spmv(A.start, A.r, A.v, x, A.tg, A.nrows),
-                "library": lambda: library_apply(lib, x),
-                "plain": lambda: dmod.diag_spmv_plain(A.start, A.r, A.v, x, A.tg,
-                                                      A.nrows),
-            }
-            ys = {k: f() for k, f in fns.items()}
-            torch.cuda.synchronize()
-            err, rel = rel_err(ys["kernel"], ys["plain"])
-            _, rel_lib = rel_err(ys["library"], ys["plain"])
-            ok = rel <= TOL_F32 and rel_lib <= TOL_F32 and bool(
-                torch.isfinite(ys["kernel"]).all())
-            ev, ms = time_in_turns(fns, ["kernel", "library", "plain", "library",
-                                         "kernel"])
-            bound = spmv_bound(nnz0, A.nrows, A.ncols, d, 4)
-            log(f"phase kernels: diag_spmv A0 d={d} f32 device us: kernel "
-                f"{ms['kernel'] * 1e3:.2f}, library (cuSPARSE) {ms['library'] * 1e3:.2f}, "
-                f"plain {ms['plain'] * 1e3:.1f} (events per call: kernel "
-                f"{ev['kernel'] * 1e3:.2f}, library {ev['library'] * 1e3:.2f}); bound "
-                f"{bound[0] * 1e3:.2f} us ({bound[1]}), "
-                f"share of bound kernel {bound[0] / ms['kernel']:.3f} library "
-                f"{bound[0] / ms['library']:.3f}; max_abs_err {err:.3e} rel {rel:.3e}, "
-                f"library rel {rel_lib:.3e} (tol {TOL_F32}) {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                raise AssertionError(f"diag_spmv A0 d={d} disagrees")
-            keep("diag_spmv", err, *((ms["kernel"], ms["plain"], bound, ms["library"])
-                                     if d == 1 else ()))
-            del x, ys, fns
-        x = torch.from_numpy(rng.standard_normal(A.ncols)).to(dev)
-        v64 = A.v.double()
-        _, rel = rel_err(dmod.diag_spmv(A.start, A.r, v64, x, A.tg, A.nrows),
-                         dmod.diag_spmv_plain(A.start, A.r, v64, x, A.tg, A.nrows))
-        log(f"phase kernels: diag_spmv A0 d=1 f64 rel {rel:.3e} (tol {TOL_F64})")
-        if not rel <= TOL_F64:
-            raise AssertionError("diag_spmv A0 f64 disagrees")
-        del x, v64, lib
+        # The SlicedDiag operators through both variants of sliced_diag_spmv,
+        # beside diag_spmv on A0's DiagEll (the route they replaced; the
+        # planner no longer builds it), cuSPARSE and the plain version.
+        chain0 = ctx.chain_csr[0]
+        idx0, mask0 = _ell_pattern(chain0)
+        t0 = time.perf_counter()
+        start, tg, r0, src0 = diag_plan_arrays(idx0, mask0, chain0.shape[1])
+        t_old_layout = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if ctx._plan_level(idx0, mask0)[0] != "sdiag":
+            raise AssertionError("the planner no longer picks SlicedDiag for A0")
+        t_new_layout = time.perf_counter() - t0
+        v0 = np.append(_ell_values(chain0, idx0.shape[0]).reshape(-1), 0.0)[src0]
+        D0 = DiagEll(torch.from_numpy(start), torch.from_numpy(r0),
+                     torch.from_numpy(v0.astype(np.float32)), tg, *chain0.shape).to(dev)
+        del idx0, mask0, r0, src0, v0
+        log(f"phase kernels: A0 layout on the host: diag_plan_arrays (DiagEll, "
+            f"what the planner built before) {t_old_layout:.2f} s, "
+            f"the planner's SlicedDiag plan (_plan_level) {t_new_layout:.2f} s; "
+            f"the 1M context's "
+            f"setup_shuffle_layout {ctx.timing['setup_shuffle_layout']:.0f} ms")
+        sdiag_cases = [("A0", ctx.levels[0].A, chain0, D0),
+                       ("CG M+1e-3S", A_cg, lhs_cg, None),
+                       ("MinQuad A0", mq.ctx.levels[0].A, mq.ctx.chain_csr[0], None)]
+        faster = {}
+        for label, A, csr, D in sdiag_cases:
+            if not isinstance(A, SlicedDiag):
+                raise AssertionError(f"{label} is a {type(A).__name__}, not SlicedDiag")
+            inf = A.info()
+            ptr, wptr = A.slice_ptr.cpu().numpy(), A.wide_ptr.cpu().numpy()
+            io = (A.nrows + A.ncols) * 4
+            old_mb = f", DiagEll (v, r) {D.r.numel() * 5 / 1e6:.1f} MB (KP {D.r.shape[0]}, " \
+                f"tg {D.tg})" if D is not None else ""
+            log(f"phase kernels: {label} rows {A.nrows} nnz {A.nnz} entries {inf['entries']} "
+                f"({inf['padding']:.3f}x nnz), slices {inf['slices']}, wide slices "
+                f"{inf['wide_slices']}, widest {A.wmax}; "
+                f"bytes per f32 apply with x and y: sliced_diag {inf['bytes'] / 1e6:.2f} MB, "
+                f"SlicedEll {(sliced_bytes(ptr, 4) + io) / 1e6:.2f} MB, format-neutral "
+                f"(nnz 8 B) {(A.nnz * 8 + io) / 1e6:.2f} MB"
+                + old_mb)
+            runs = [(torch.float32, 1), (torch.float64, 1)]
+            if label == "A0":   # d = 3 in f64 is what the flow's cycles run
+                runs = [(torch.float32, 1), (torch.float32, 3), (torch.float64, 1),
+                        (torch.float64, 3)]
+            csr = csr.copy()        # cuSPARSE's values as the layout holds them
+            csr.data = csr.data.astype(np.float32)
+            for dtype, d in runs:
+                item = 4 if dtype == torch.float32 else 8
+                tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+                val = A.val.to(dtype)          # f64: the same values widened
+                lib = csr_tensor(csr, dtype, dev)
+                xs = rng.standard_normal((A.ncols,) if d == 1 else (A.ncols, d))
+                x = torch.from_numpy(xs).to(dev, dtype)
+                args = (A.slice_ptr, A.base, A.delta, val, A.wide_ptr, A.wide_col)
+                fns = {v: (lambda v=v: sdmod.sliced_diag_spmv(*args, x, A.nrows, A.wmax, v))
+                       for v in sdmod.VARIANTS}
+                fns["library"] = lambda: library_apply(lib, x)
+                fns["plain"] = lambda: sdmod.sliced_diag_spmv_plain(*args, x, A.nrows)
+                order = ["staged", "direct", "library", "plain"]
+                if D is not None:
+                    dv = D.v.to(dtype)
+                    fns["old"] = lambda: dmod.diag_spmv(D.start, D.r, dv, x, D.tg, D.nrows)
+                    fns["old plain"] = lambda: dmod.diag_spmv_plain(D.start, D.r, dv, x,
+                                                                    D.tg, D.nrows)
+                    order += ["old", "old plain"]
+                order += ["library", "direct", "staged"] + (["old"] if D is not None else [])
+                ys = {k: f() for k, f in fns.items()}
+                torch.cuda.synchronize()
+                errs = {k: rel_err(ys[k], ys["plain"]) for k in fns if k != "plain"}
+                if D is not None:
+                    errs["old vs its plain"] = rel_err(ys["old"], ys["old plain"])
+                ok = (all(r <= tol for _, r in errs.values())
+                      and all(bool(torch.isfinite(ys[v]).all()) for v in sdmod.VARIANTS))
+                ev, ms = time_in_turns(fns, order)
+                own = spmv_bound(A.nnz, A.nrows, A.ncols, d, item,
+                                 sliced_diag_bytes(ptr, wptr, item))
+                neutral = spmv_bound(A.nnz, A.nrows, A.ncols, d, item)
+                timed = [k for k in ("direct", "staged", "old", "library") if k in ms]
+                dt = "f32" if item == 4 else "f64"
+                log(f"phase kernels: sliced_diag_spmv {label} d={d} {dt} device us: "
+                    + ", ".join(f"{k} {ms[k] * 1e3:.2f}" for k in timed)
+                    + f", plain {ms['plain'] * 1e3:.1f}"
+                    + (f", old plain {ms['old plain'] * 1e3:.1f}" if D is not None else "")
+                    + " (events per call: " + ", ".join(
+                        f"{k} {ev[k] * 1e3:.2f}" for k in timed)
+                    + f"); bound of this layout {own[0] * 1e3:.2f} us ({own[1]}), "
+                    f"format-neutral bound {neutral[0] * 1e3:.2f} us ({neutral[1]}); "
+                    "share of the layout's bound " + ", ".join(
+                        f"{k} {own[0] / ms[k]:.3f}" for k in timed)
+                    + "; of the format-neutral bound " + ", ".join(
+                        f"{k} {neutral[0] / ms[k]:.3f}" for k in timed)
+                    + "; max_abs_err / rel vs plain " + ", ".join(
+                        f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items())
+                    + f" (tol {tol}) {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"sliced_diag_spmv {label} d={d} {dt} disagrees")
+                faster[(label, d, dt)] = min(sdmod.VARIANTS, key=lambda v: ms[v])
+                keep("sliced_diag_spmv", max(errs[v][0] for v in sdmod.VARIANTS),
+                     *((ms[sdmod.PREFERRED], ms["plain"], own, ms["library"])
+                       if (label, d, item) == ("A0", 1, 4) else ()))
+                if D is not None:
+                    keep("diag_spmv", errs["old vs its plain"][0],
+                         *((ms["old"], ms["old plain"], neutral, ms["library"])
+                           if (d, item) == (1, 4) else ()))
+                if (label, d) == ("A0", 1):
+                    log(f"phase kernels: A0 {dt} per 1M V-cycle (10 applies): "
+                        + ", ".join(f"{k} {10 * ms[k]:.4f} ms" for k in timed))
+                del x, ys, fns, lib, val
+        log("phase kernels: faster sliced_diag_spmv variant " + ", ".join(
+            f"{lbl} d={d} {dt}: {v}" for (lbl, d, dt), v in faster.items())
+            + f"; solves run {sdmod.PREFERRED}")
+        del D0, sdiag_cases
 
-        # the halo path's stacked interior A0 through shuffle_spmv
+        # the halo path's stacked interior A0 through shuffle_spmv, beside
+        # cuSPARSE on the same 4 stacked blocks as one CSR matrix
         A = A0_stacked
         nnz_h = int(torch.count_nonzero(A.v))
+        hv = A.v.reshape(-1)
+        keep_h = hv != 0
+        hcols = (A.q.long()[:, :, None] * 128 + A.r.long()).reshape(-1)[keep_h]
+        hrows = torch.arange(A.r.shape[1] * 128, device=dev).repeat(A.r.shape[0])[keep_h]
+        lib = csr_tensor(sp.coo_matrix(
+            (hv[keep_h].double().cpu().numpy(),
+             (hrows.cpu().numpy(), hcols.cpu().numpy())), shape=(A.nrows, A.ncols)),
+            torch.float32, dev)
+        del hv, keep_h, hcols, hrows
         for d in (1, 3):
             xs = rng.standard_normal((A.ncols,) if d == 1 else (A.ncols, d))
             x = torch.from_numpy(xs).to(dev, torch.float32)
             y = smod.shuffle_spmv(A.q, A.r, A.v, x, A.nrows)
             ref = smod.shuffle_spmv_plain(A.q, A.r, A.v, x, A.nrows)
             err, rel = rel_err(y, ref)
-            ok = rel <= TOL_F32 and bool(torch.isfinite(y).all())
+            _, rel_lib = rel_err(library_apply(lib, x), ref)
+            ok = rel <= TOL_F32 and rel_lib <= TOL_F32 and bool(torch.isfinite(y).all())
             _, ms = time_in_turns({
                 "kernel": lambda: smod.shuffle_spmv(A.q, A.r, A.v, x, A.nrows),
+                "library": lambda: library_apply(lib, x),
                 "plain": lambda: smod.shuffle_spmv_plain(A.q, A.r, A.v, x, A.nrows),
-            }, ["kernel", "plain", "kernel"])
+            }, ["kernel", "library", "plain", "library", "kernel"])
             bound = spmv_bound(nnz_h, A.nrows, A.ncols, d, 4)
             log(f"phase kernels: shuffle_spmv halo A0 interior, 4 partitions stacked "
                 f"{tuple(A.r.shape)} d={d} f32 device us: kernel {ms['kernel'] * 1e3:.2f} "
+                f"library (cuSPARSE) {ms['library'] * 1e3:.2f} "
                 f"plain {ms['plain'] * 1e3:.1f}; bound {bound[0] * 1e3:.2f} us "
-                f"({bound[1]}, {nnz_h} nonzeros), share {bound[0] / ms['kernel']:.3f}; "
-                f"max_abs_err {err:.3e} "
-                f"rel {rel:.3e} (tol {TOL_F32}) {'ok' if ok else 'MISMATCH'}")
+                f"({bound[1]}, {nnz_h} nonzeros), share kernel {bound[0] / ms['kernel']:.3f} "
+                f"library {bound[0] / ms['library']:.3f}; max_abs_err {err:.3e} "
+                f"rel {rel:.3e}, library rel {rel_lib:.3e} (tol {TOL_F32}) "
+                f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(f"shuffle_spmv halo A0 d={d} disagrees")
             keep("shuffle_spmv", err)
             del x, y, ref
+        del lib
         x = torch.from_numpy(rng.standard_normal(A.ncols)).to(dev)
         v64 = A.v.double()
         _, rel = rel_err(smod.shuffle_spmv(A.q, A.r, v64, x, A.nrows),
@@ -663,6 +780,7 @@ def main():
         counts.reset()
         x = solver.solve(lhs, rhs, mode="fused")
         launches = counts.read()
+        dispatched0 = ctx.dispatched
         cycles = int(solver.solver_timing["iterations"])
         cycles_ms = solver.solver_timing["cycles"]
         res = solver.residual(lhs, rhs, x)
@@ -677,9 +795,11 @@ def main():
         traced_ms = solver.solver_timing["cycles"]
         dispatched = ctx.dispatched
         trace_msg = trace_summary(prof, "poisson_warm_solve", dispatched)
+        # A0 is SlicedDiag: 9 applies per cycle and one in the residual check
         ok = (np.isfinite(x).all() and x.shape == rhs.shape and res <= 1e-4
               and cycles <= 6 and launches["sliced_spmv"] > 0
-              and launches["diag_spmv"] > 0 and launches["shuffle_spmv"] == 0)
+              and launches["sliced_diag_spmv"] == 10 * dispatched0
+              and launches["diag_spmv"] == 0 and launches["shuffle_spmv"] == 0)
         log(f"phase poisson: dof={solver.hierarchy.dof} {layouts(ctx)} "
             f"cycles {cycles} residual(host f64) {res:.3e} "
             f"trace {[f'{c[1]:.3e}' for c in solver.convergence]}")
@@ -688,10 +808,12 @@ def main():
             f"warm solves' cycles " + ", ".join(
                 f"{w:.2f} ms ({w / max(cycles, 1):.3f} ms/cycle, call {c:.3f} s)"
                 for w, c in warm)
-            + f"; peak device memory {peak:.0f} MiB")
+            + f"; peak device memory {peak:.0f} MiB, {peak - mq_mib:.0f} MiB without "
+            f"MinQuad's context ({mq_mib:.0f} MiB, resident since poisson-setup)")
         log(f"phase poisson: traced warm solve {traced_ms:.2f} ms, {dispatched} "
             f"cycles dispatched for {cycles}: {trace_msg}")
-        log(f"phase poisson: launches {launches} {'ok' if ok else 'FAIL'}")
+        log(f"phase poisson: launches {launches} (sliced_diag_spmv expected 10 per "
+            f"dispatched cycle, {dispatched0} dispatched) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("1M Poisson solve failed its checks")
         x_single, cycles_single = x, cycles
@@ -756,6 +878,7 @@ def main():
             "level-0 halo < 5% of nloc": halo0 < 0.05 * plan[0]["nloc"],
             "shuffle_spmv launched": launches["shuffle_spmv"] > 0,
             "no diag_spmv": launches["diag_spmv"] == 0,
+            "no sliced_diag_spmv": launches["sliced_diag_spmv"] == 0,
             "finite": bool(np.isfinite(xh).all()) and xh.shape == rhs.shape,
         }
         ok = all(checks.values())
@@ -795,7 +918,7 @@ def main():
         solver.cg_solve(lhs_cg, rhs_cg, max_iter=2000)
         warm_ms = solver.solver_timing["cg_ms"]
         ok = (x.shape == rhs_cg.shape and np.isfinite(x).all() and res <= 1e-4
-              and launched["sliced_spmv"] > 0)
+              and launched["sliced_diag_spmv"] > 0)
         log(f"phase cg: n={n} operator {type(A_cg).__name__} "
             f"iterations {int(t['cg_iterations'])} iterate loop {t['cg_ms']:.2f} ms "
             f"(call with operator build and upload {wall:.2f} s; warm call's "
@@ -810,16 +933,6 @@ def main():
     # ---- 6. MinQuadWithFixedMG on the 1M solver ------------------------------
     try:
         t_wall = time.perf_counter()
-        rng3 = np.random.default_rng(3)
-        known = rng3.choice(n, size=n // 20, replace=False)
-        Y = rng3.standard_normal(known.size)
-        B = M @ rng3.standard_normal(n)
-        lhs_mq = (S + 1e-3 * M).tocsr()
-        t0 = time.perf_counter()
-        mq = MinQuadWithFixedMG(solver, lhs_mq, known, tol=1e-4, max_iter=20,
-                                criteria=2)
-        torch.cuda.synchronize()
-        t_pre = time.perf_counter() - t0
         counts.reset()
         x, iters, res_dev, _ = mq.solve(B, Y)
         launched = counts.read()
@@ -830,7 +943,7 @@ def main():
         res = float(np.sqrt((r @ (Muu @ r)) / (b_u @ (Muu @ b_u))))
         ok = (np.isfinite(x).all() and np.array_equal(x[known], Y)
               and res <= 1e-4 and launched["sliced_spmv"] > 0
-              and launched["diag_spmv"] > 0)
+              and launched["sliced_diag_spmv"] > 0 and launched["diag_spmv"] == 0)
         log(f"phase minquad: n={n} known {known.size} dof={mq.ctx.hierarchy.dof} "
             f"{layouts(mq.ctx)} precompute {t_pre:.2f} s cycles {iters} "
             f"{mq.ctx.timing['cycles']:.2f} ms residual(host f64, reduced, "
@@ -883,7 +996,8 @@ def main():
             step_ok = (np.isfinite(Vt).all() and res <= 1e-4
                        and len(fs._contexts) == 1 and len(contexts) == 1
                        and launched["sliced_spmv"] > 0
-                       and launched["diag_spmv"] > 0)
+                       and launched["sliced_diag_spmv"] > 0
+                       and launched["diag_spmv"] == 0)
             ok &= step_ok
             what = "context setup" if step == 0 else "update_lhs"
             log(f"phase flow: step {step} cycles "
@@ -932,10 +1046,13 @@ def main():
         "sliced_spmv": ("sliced_spmv.cu", "gravo_mg_tpu/ops/shuffle_spmv.py:87"),
         "diag_spmv": ("diag_spmv.cu", "gravo_mg_tpu/ops/diag_spmv.py:146"),
         "shuffle_spmv": ("shuffle_spmv.cu", "gravo_mg_tpu/ops/shuffle_spmv.py:87"),
+        "sliced_diag_spmv": ("sliced_diag_spmv.cu", "gravo_mg_tpu/ops/diag_spmv.py:146"),
     }
     # ms, plain_ms, bound and library_ms at U0^T d=1 (sliced_spmv, and
-    # shuffle_spmv on the JAX layout of the same matrix) and A0 d=1
-    # (diag_spmv); launches summed over the solve phases.
+    # shuffle_spmv on the JAX layout of the same matrix) and A0 d=1 f32
+    # (diag_spmv on A0's DiagEll, format-neutral bound; sliced_diag_spmv in
+    # the variant solves run, the layout's own bound); launches
+    # summed over the solve phases.
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"gravo_mg_tpu_torch/csrc/{src}", "replaces": replaces,

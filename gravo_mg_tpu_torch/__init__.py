@@ -18,8 +18,8 @@ from .enums import CycleType, Hierarchy, Sampling, Smoother, Weighting
 from .hierarchy.builder import build_hierarchy
 from .solver.min_quad import MinQuadWithFixedMG
 from .sparse import (
-    DiagEll, EllMatrix, Prolongation, ShuffleEll, SlicedEll, ell_from_scipy,
-    spmv,
+    DiagEll, EllMatrix, Prolongation, ShuffleEll, SlicedDiag, SlicedEll,
+    ell_from_scipy, spmv,
 )
 
 __all__ = [
@@ -33,6 +33,7 @@ __all__ = [
     "EllMatrix",
     "Prolongation",
     "ShuffleEll",
+    "SlicedDiag",
     "SlicedEll",
     "ell_from_scipy",
     "spmv",

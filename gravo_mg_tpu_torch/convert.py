@@ -20,6 +20,7 @@ from .sparse import (
     ShuffleEll,
     ShuffleTransfer,
     make_prolongation,
+    resolve_device,
 )
 
 
@@ -79,9 +80,12 @@ def transfer_from_reference(U):
                         cols.astype(np.int32), weights)
 
 
-def levels_from_reference(levels, coarse_op, device="cpu"):
+def levels_from_reference(levels, coarse_op, device="cuda"):
     """(levels, coarse) for the port's cycle from a reference context's
-    ``levels`` (A, diag_inv, lam_max, U) and ``coarse_op`` (Ainv, Ad)."""
+    ``levels`` (A, diag_inv, lam_max, U) and ``coarse_op`` (Ainv, Ad), on
+    ``device`` (``"cuda"`` by default, which raises without a GPU; pass
+    ``"cpu"`` for the plain PyTorch SpMVs)."""
+    device = resolve_device(device)
     out = tuple(
         LevelOps(
             operator_from_reference(lvl.A), _t(lvl.diag_inv),

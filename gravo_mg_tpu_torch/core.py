@@ -55,7 +55,9 @@ class MultigridSolver:
 
         Args mirror the reference (`core.py:8-57`) and the JAX package;
         ``device`` selects where the solve runs and ``diag_min_groups``
-        the row-group count from which a level is planned as DiagEll.
+        the count of 128-row groups from which a level may be planned as
+        SlicedDiag (where that streams fewer bytes per apply than
+        SlicedEll).
         """
         self.device = resolve_device(device)
         self.pos = np.asarray(pos, dtype=np.float64)

@@ -1,8 +1,9 @@
 // Shared launch constants for the SpMV kernels (shuffle_spmv.cu,
-// diag_spmv.cu, sliced_spmv.cu): blocks of kThreads threads, each thread
-// accumulating up to kCols right-hand-side columns; wider right-hand sides
-// are split over gridDim.y.  shuffle_spmv and diag_spmv run one thread per
-// output row; sliced_spmv one or more (its TPR).
+// diag_spmv.cu, sliced_spmv.cu, sliced_diag_spmv.cu): blocks of kThreads
+// threads, each thread accumulating up to kCols right-hand-side columns;
+// wider right-hand sides are split over gridDim.y.  shuffle_spmv,
+// diag_spmv and sliced_diag_spmv run one thread per output row;
+// sliced_spmv one or more (its TPR).
 #pragma once
 
 #include <cstdint>

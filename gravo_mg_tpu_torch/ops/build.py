@@ -28,7 +28,10 @@ ARCH = "sm_90a"
 _SPMV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
 _DIAG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
 _SLICED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+_SLICED_DIAG_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
 _SIGNATURES = {
+    "gravomg_sliced_diag_spmv_f32": _SLICED_DIAG_ARGS,
+    "gravomg_sliced_diag_spmv_f64": _SLICED_DIAG_ARGS,
     "gravomg_shuffle_spmv_f32": _SPMV_ARGS,
     "gravomg_shuffle_spmv_f64": _SPMV_ARGS,
     "gravomg_diag_spmv_f32": _DIAG_ARGS,

@@ -5,8 +5,8 @@ solverType 0/1 (Eigen/Pardiso sparse factorizations,
 multigrid_solver.cpp:1287-1366) as a host factorization (CHOLMOD when
 scikit-sparse is importable, SuperLU otherwise), and solverType 4 (Eigen
 CG, :1453-1477) as a Jacobi-preconditioned CG on the device whose operator
-is the whole LHS in SlicedEll layout, so every iteration launches the
-``sliced_spmv`` kernel on a GPU.
+is the whole LHS in SlicedDiag or SlicedEll layout, so every iteration
+launches the ``sliced_diag_spmv`` or ``sliced_spmv`` kernel on a GPU.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..sparse import (
-    ell_from_scipy, numpy_dtype, resolve_device, sliced_from_scipy, spmv,
+    ell_from_scipy, numpy_dtype, resolve_device, sliced_layout_from_scipy, spmv,
 )
 
 # CG's operator falls back to transposed ELL when the SlicedEll layout
@@ -69,10 +69,12 @@ def direct_solve(lhs_csr, rhs: np.ndarray, timing: Optional[dict] = None):
 
 
 def cg_operator(lhs_csr, dtype=torch.float32):
-    """The CG operator: SlicedEll, or transposed ELL where the sliced
-    layout would store beyond ``max(PAD_FACTOR nnz, PAD_FLOOR)`` entries."""
+    """The CG operator: SlicedDiag or SlicedEll, whichever streams fewer
+    bytes per apply (the planner's rule, ``sparse.smaller_sliced_diag``),
+    or transposed ELL where the sliced layout would store beyond
+    ``max(PAD_FACTOR nnz, PAD_FLOOR)`` entries."""
     cap = max(PAD_FACTOR * lhs_csr.nnz, PAD_FLOOR)
-    A = sliced_from_scipy(lhs_csr, dtype=dtype, size_cap=cap)
+    A = sliced_layout_from_scipy(lhs_csr, dtype=dtype, size_cap=cap)
     return A if A is not None else ell_from_scipy(lhs_csr, dtype=dtype)
 
 

@@ -32,18 +32,18 @@ import torch
 from ..enums import CycleType, Smoother
 from ..hierarchy.builder import Hierarchy
 from ..sparse import (
-    DiagEll,
     EllMatrix,
     ShuffleTransfer,
+    SlicedDiag,
     SlicedEll,
-    diag_plan_arrays,
     numpy_dtype,
     pick_tpr,
     resolve_device,
-    shuffle_plan_arrays,
     sliced_from_scipy,
     sliced_plan_arrays,
+    smaller_sliced_diag,
     spmv,
+    widest_slice,
 )
 from .residual import residual_denominator, residual_numerator
 from .smoothers import chebyshev, jacobi
@@ -53,7 +53,7 @@ from .smoothers import chebyshev, jacobi
 class LevelOps:
     """Per-level operator bundle used by the cycle."""
 
-    A: object                # DiagEll | SlicedEll | EllMatrix
+    A: object                # SlicedDiag | SlicedEll | EllMatrix (| DiagEll)
     diag_inv: torch.Tensor
     lam_max: float
     U: object                # ShuffleTransfer | Prolongation
@@ -302,8 +302,9 @@ class MultigridSolveContext:
     """Everything reusable across solves for one (hierarchy, LHS pattern):
     chain patterns, slot layouts, device level operators, coarse inverse.
 
-    ``diag_min_groups``: levels with at least this many 128-row groups are
-    planned as DiagEll (the reference reads it from the environment).
+    ``diag_min_groups``: levels with at least this many 128-row groups may
+    be planned as SlicedDiag, where that streams fewer bytes per apply than
+    SlicedEll (the reference reads its DiagEll gate from the environment).
     ``device`` defaults to ``"cuda"``, which raises without a GPU; pass
     ``"cpu"`` for the plain PyTorch SpMVs.
     """
@@ -376,7 +377,7 @@ class MultigridSolveContext:
             if plan[0] == "ell":
                 self._csr_src.append(None)
                 continue
-            src = plan[4] if plan[0] == "diag" else plan[3]
+            src = plan[2]
             indptr = chain[k2].indptr
             n2 = chain[k2].shape[0]
             if self._ell_k[k2] * n2 < 2**31 and chain[k2].nnz < 2**31:
@@ -399,38 +400,27 @@ class MultigridSolveContext:
         self._reduce_and_upload(chain)
 
     def _plan_level(self, idx, mask):
-        """Per-level sparse-layout choice (tagged plan tuple).
+        """Per-level sparse-layout choice: a tagged plan tuple ``(tag,
+        pattern arrays, src, extra)``, ``src`` mapping each stored entry to
+        its flattened ELL position (K*N = padding).
 
-        Levels with >= ``diag_min_groups`` row groups get the DiagEll
-        layout while its slot padding stays within the reference's traffic
-        bound against the ShuffleEll layout (9 vs 17 bytes per slot lane,
-        counted for the TPU kernels, where ShuffleEll also round-trips z
-        through HBM); everything else gets the SlicedEll layout.  Layouts
-        storing beyond max(8 nnz, 2^24) entries fall back to transposed
-        ELL.
+        Every level gets the SlicedEll layout (``"sliced"``, extra = threads
+        per row), except that a level with >= ``diag_min_groups`` row groups
+        of 128 gets the SlicedDiag layout derived from it (``"sdiag"``,
+        extra = widest slice) where one apply then streams fewer bytes.
+        Layouts storing beyond max(8 nnz, 2^24) entries fall back to
+        transposed ELL (``("ell",)``).
         """
         n = idx.shape[1]
-        s_groups = -(-n // 128)
-        plan = None
-        if s_groups >= self.diag_min_groups:
-            dplan = diag_plan_arrays(idx, mask, n)
-            kp_d = dplan[2].shape[0]
-            # Cheap accept first: kp_shuffle >= K, so passing the bound
-            # against K proves it against the shuffle layout unbuilt.
-            accept = 9 * kp_d <= 2 * 17 * idx.shape[0]
-            if not accept:
-                kp_s = shuffle_plan_arrays(idx, mask, n)[0].shape[0]
-                accept = 9 * kp_d <= 2 * 17 * kp_s
-            if accept:
-                plan = ("diag",) + dplan
-        if plan is None:
-            slice_ptr, col, src = sliced_plan_arrays(idx, mask, n)
-            plan = ("sliced", slice_ptr, col, src, pick_tpr(slice_ptr, n))
-        nnz = int(np.asarray(mask).sum())
-        stored = (plan[3] if plan[0] == "diag" else plan[2]).size
-        if stored > max(8 * nnz, 1 << 24):
+        slice_ptr, col, src = sliced_plan_arrays(idx, mask, n)
+        if int(slice_ptr[-1]) > max(8 * int(np.asarray(mask).sum()), 1 << 24):
             return ("ell",)
-        return plan
+        if -(-n // 128) >= self.diag_min_groups:
+            runs = smaller_sliced_diag(slice_ptr, col, src != idx.size, n,
+                                       numpy_dtype(self.dtype).itemsize)
+            if runs is not None:
+                return ("sdiag", (slice_ptr,) + runs, src, widest_slice(slice_ptr))
+        return ("sliced", (slice_ptr, col), src, pick_tpr(slice_ptr, n))
 
     def _level_tensors(self, k, pattern, A):
         """Device tensors of level k's operator: its pattern arrays,
@@ -489,15 +479,15 @@ class MultigridSolveContext:
                     torch.from_numpy(_ell_values(A, self._ell_k[k]).astype(npdt)),
                     A.shape[1],
                 ).to(self.device)
-            elif plan[0] == "diag":
-                _, start, tg, r, _src = plan
-                start_t, r_t, v_t = self._level_tensors(k, (start, r), A)
-                A_dev = DiagEll(start_t, r_t, v_t, tg, A.shape[0], A.shape[1])
+            elif plan[0] == "sdiag":
+                ptr_t, base_t, delta_t, wp_t, wc_t, v_t = self._level_tensors(
+                    k, plan[1], A)
+                A_dev = SlicedDiag(ptr_t, base_t, delta_t, v_t, wp_t, wc_t,
+                                   A.shape[0], A.shape[1], int(A.nnz), plan[3])
             else:
-                _, slice_ptr, col, _src, tpr = plan
-                ptr_t, col_t, v_t = self._level_tensors(k, (slice_ptr, col), A)
+                ptr_t, col_t, v_t = self._level_tensors(k, plan[1], A)
                 A_dev = SlicedEll(ptr_t, col_t, v_t, A.shape[0], A.shape[1],
-                                  int(A.nnz), tpr)
+                                  int(A.nnz), plan[3])
             diag_inv = torch.from_numpy(diag_inv_np).to(self.device, self.dtype)
             self._host_diag_inv.append(diag_inv_np)
             self.host_lam.append(lam)

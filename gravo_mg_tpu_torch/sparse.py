@@ -7,14 +7,19 @@ the layout (SlicedEll is the port's own).  The device half is plain
 dataclasses of torch tensors with a ``.to(device)``:
 
 * :class:`SlicedEll` — rows in slices of 32, each slice as wide as its
-  longest row, column and value per entry; the layout of every
-  single-device operator except a DiagEll finest level; applied by
+  longest row, column and value per entry; applied by
   ``ops/sliced_spmv.py``;
+* :class:`SlicedDiag` — the same slices, with a column implied by the
+  row: one int32 base per (slice, slot) and an int8 delta per entry
+  (int32 columns for the slices whose deltas do not fit); the layout of
+  a large level operator (and of CG's operator) where it streams fewer
+  bytes than SlicedEll; applied by ``ops/sliced_diag_spmv.py``;
 * :class:`ShuffleEll` — per (slot, 128-row group) one source block ``q``
   plus a per-row lane ``r`` (the JAX package's TPU layout, kept for the
   halo path, ``parallel/halo.py``); applied by ``ops/shuffle_spmv.py``;
 * :class:`DiagEll` — the source block is an arithmetic run within tiles
-  of ``tg`` groups (``start`` table); applied by ``ops/diag_spmv.py``;
+  of ``tg`` groups (``start`` table; the JAX package's TPU layout, carried
+  over by ``convert.py``); applied by ``ops/diag_spmv.py``;
 * :class:`EllMatrix` — transposed padded rows, the planner's fallback for
   padding-pathological operators (plain torch gather);
 * :class:`ShuffleTransfer` / :class:`Prolongation` — grid transfers.
@@ -32,6 +37,7 @@ import torch
 
 from .ops.diag_spmv import diag_spmv as _diag_kernel
 from .ops.shuffle_spmv import shuffle_spmv as _shuffle_kernel
+from .ops.sliced_diag_spmv import sliced_diag_spmv as _sliced_diag_kernel
 from .ops.sliced_spmv import SLICE
 from .ops.sliced_spmv import sliced_spmv as _sliced_kernel
 
@@ -184,6 +190,64 @@ class SlicedEll:
         }
 
 
+@dataclasses.dataclass
+class SlicedDiag:
+    """Sparse matrix in sliced diagonal-run layout: the slices of
+    :class:`SlicedEll` (entry (s, k, lane) of row ``32 s + lane`` at ``e =
+    slice_ptr[s] + 32 k + lane``), each column implied by its row,
+
+        col = 32 s + lane + base[slice_ptr[s] / 32 + k] + delta[e],
+
+    with one int32 ``base`` per (slice, slot) and one int8 ``delta`` per
+    entry: a run of rows reading one diagonal, the idea of :class:`DiagEll`
+    at the width of a warp.  A slice whose deltas do not fit int8, or whose
+    padding cannot reach a column in range, is *wide*: ``wide_ptr[s] >= 0``
+    and its columns are ``wide_col[wide_ptr[s] + e - slice_ptr[s]]`` (its
+    base and delta entries are 0 and never read).  Padding has weight 0 and
+    a column in [0, ncols); a row's entries keep their CSR column order.
+    ``wmax`` is the widest slice in slots."""
+
+    slice_ptr: torch.Tensor  # (n_slices + 1,) int64 entry offsets
+    base: torch.Tensor       # (E / 32,) int32, one per (slice, slot)
+    delta: torch.Tensor      # (E,) int8 column minus row minus base
+    val: torch.Tensor        # (E,) values (padding: 0)
+    wide_ptr: torch.Tensor   # (n_slices,) int64 offset into wide_col, or -1
+    wide_col: torch.Tensor   # (E_wide,) int32 columns of the wide slices
+    nrows: int
+    ncols: int
+    nnz: int
+    wmax: int
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    def to(self, device) -> "SlicedDiag":
+        return dataclasses.replace(
+            self, slice_ptr=self.slice_ptr.to(device), base=self.base.to(device),
+            delta=self.delta.to(device), val=self.val.to(device),
+            wide_ptr=self.wide_ptr.to(device), wide_col=self.wide_col.to(device),
+        )
+
+    def info(self) -> dict:
+        """Rows, slices, wide slices, stored entries, nonzeros, padding
+        factor (entries / nnz), widest slice and the bytes one apply
+        streams at d = 1 (:func:`sliced_diag_bytes` plus x and y)."""
+        ptr = self.slice_ptr.cpu().numpy()
+        wide_ptr = self.wide_ptr.cpu().numpy()
+        entries = int(self.delta.numel())
+        item = self.val.element_size()
+        return {
+            "rows": self.nrows, "slices": int(wide_ptr.size),
+            "wide_slices": int((wide_ptr >= 0).sum()),
+            "entries": entries, "nnz": self.nnz,
+            "padding": entries / max(self.nnz, 1),
+            "max_width": self.wmax,
+            "bytes": sliced_diag_bytes(ptr, wide_ptr, item)
+            + (self.nrows + self.ncols) * item,
+        }
+
+
 # pick_tpr's targets: the fewest threads a launch should have, and the
 # most slots a thread should walk on average (H100 sweeps of the 1M
 # Poisson operators, PERF.md).
@@ -227,26 +291,148 @@ def _sliced_layout(indptr: np.ndarray, nrows: int):
     return slice_ptr, dest
 
 
-def sliced_from_scipy(A, dtype=torch.float32,
-                      size_cap: int | None = None) -> SlicedEll | None:
-    """Convert any scipy sparse matrix to SlicedEll (host tensors);
-    duplicates are summed.  ``size_cap``: if the layout would store more
-    than this many entries, return None without materializing it."""
+def _sliced_entries(A, dtype, size_cap: int | None):
+    """(canonical csr A, slice_ptr, col, val, real) of A's SlicedEll
+    layout, ``real`` marking the entries that hold a nonzero; None where
+    the layout would store more than ``size_cap`` entries."""
     A = A.tocsr()
     if not A.has_canonical_format:
         A = A.copy()
         A.sum_duplicates()
-    nr, nc = A.shape
-    slice_ptr, dest = _sliced_layout(A.indptr, nr)
+    slice_ptr, dest = _sliced_layout(A.indptr, A.shape[0])
     entries = int(slice_ptr[-1])
     if size_cap is not None and entries > size_cap:
         return None
     col = np.zeros(entries, np.int32)
     val = np.zeros(entries, numpy_dtype(dtype))
+    real = np.zeros(entries, bool)
     col[dest] = A.indices
     val[dest] = A.data
+    real[dest] = True
+    return A, slice_ptr, col, val, real
+
+
+def sliced_from_scipy(A, dtype=torch.float32,
+                      size_cap: int | None = None) -> SlicedEll | None:
+    """Convert any scipy sparse matrix to SlicedEll (host tensors);
+    duplicates are summed.  ``size_cap``: if the layout would store more
+    than this many entries, return None without materializing it."""
+    got = _sliced_entries(A, dtype, size_cap)
+    if got is None:
+        return None
+    A, slice_ptr, col, val, _ = got
+    nr, nc = A.shape
     return SlicedEll(_tensor(slice_ptr), _tensor(col), _tensor(val), nr, nc,
                      int(A.nnz), pick_tpr(slice_ptr, nr))
+
+
+def sliced_diag_arrays(slice_ptr: np.ndarray, col: np.ndarray,
+                       real: np.ndarray, ncols: int):
+    """The SlicedDiag index arrays of a SlicedEll layout (host numpy).
+
+    ``slice_ptr``/``col`` as SlicedEll stores them; ``real (E,)`` marks the
+    entries that hold a nonzero (the rest is padding).  Every (slice, slot)
+    is 32 consecutive entries, so the offsets ``col - row`` of a slot are
+    one row of the (E/32, 32) view.  Its base is the middle of the real
+    offsets' range; a padding lane takes the column ``row + base``, moved
+    into [0, ncols).  A slot fits when every lane's delta is in [-128, 127]
+    (the real offsets span at most 255 and the padding reaches a column in
+    range); a slice with a slot that does not fit is wide.  Returns ``(base
+    (E/32,) int32, delta (E,) int8, wide_ptr (n_slices,) int64, wide_col
+    (E_wide,) int32)``."""
+    slice_ptr = np.asarray(slice_ptr, np.int64)
+    col = np.asarray(col)
+    widths = np.diff(slice_ptr) // SLICE
+    slots = int(slice_ptr[-1]) // SLICE
+    slot_slice = np.repeat(np.arange(widths.size, dtype=np.int64), widths)
+    rows = slot_slice[:, None] * SLICE + np.arange(SLICE)       # (slots, 32)
+    off = col.reshape(slots, SLICE).astype(np.int64) - rows
+    real = np.asarray(real, bool).reshape(slots, SLICE)
+    big = np.iinfo(np.int64).max    # every slot of a slice has a real lane
+    lo = np.where(real, off, big).min(axis=1)
+    hi = np.where(real, off, -big).max(axis=1)
+    base = lo + (hi - lo + 1) // 2
+    pad = np.clip(rows + base[:, None], 0, max(ncols - 1, 0)) - rows
+    d = np.where(real, off, pad) - base[:, None]
+    fits = ((d >= -128) & (d <= 127)).all(axis=1)
+    wide = np.bincount(slot_slice[~fits], minlength=widths.size) > 0
+    wide_slot = wide[slot_slice]
+    base = np.where(wide_slot, 0, base).astype(np.int32)
+    delta = np.where(wide_slot[:, None], 0, d).astype(np.int8).reshape(-1)
+    wide_ptr = np.full(widths.size, -1, np.int64)
+    wide_entries = widths[wide] * SLICE
+    wide_ptr[wide] = np.cumsum(wide_entries) - wide_entries
+    wide_col = col[np.repeat(wide_slot, SLICE)].astype(np.int32)
+    return base, delta, wide_ptr, wide_col
+
+
+def sliced_bytes(slice_ptr: np.ndarray, itemsize: int) -> int:
+    """Bytes one SlicedEll apply streams besides x and y: a column and a
+    value per stored entry and the slice offsets."""
+    return int(slice_ptr[-1]) * (4 + itemsize) + 8 * int(np.size(slice_ptr))
+
+
+def sliced_diag_bytes(slice_ptr: np.ndarray, wide_ptr: np.ndarray,
+                      itemsize: int) -> int:
+    """Bytes one SlicedDiag apply streams besides x and y: a value per
+    stored entry; a delta per entry and a base per slot of the delta
+    slices; a column per entry of the wide slices; both offset tables."""
+    widths = np.diff(np.asarray(slice_ptr)) // SLICE
+    wide = np.asarray(wide_ptr) >= 0
+    entries = int(slice_ptr[-1])
+    e_wide = int(widths[wide].sum()) * SLICE
+    e_narrow = entries - e_wide
+    return (entries * itemsize + e_narrow + 4 * (e_narrow // SLICE)
+            + 4 * e_wide + 8 * (int(np.size(slice_ptr)) + int(np.size(wide_ptr))))
+
+
+def smaller_sliced_diag(slice_ptr: np.ndarray, col: np.ndarray,
+                        real: np.ndarray, ncols: int, itemsize: int):
+    """The layout choice of the planner and of CG's operator: the
+    SlicedDiag index arrays of a SlicedEll layout (see
+    :func:`sliced_diag_arrays`) where one apply then streams fewer bytes
+    than through SlicedEll (:func:`sliced_diag_bytes` against
+    :func:`sliced_bytes`; x and y are the same for both), else None."""
+    runs = sliced_diag_arrays(slice_ptr, col, real, ncols)
+    if (sliced_diag_bytes(slice_ptr, runs[2], itemsize)
+            < sliced_bytes(slice_ptr, itemsize)):
+        return runs
+    return None
+
+
+def widest_slice(slice_ptr: np.ndarray) -> int:
+    """The widest slice of a sliced layout, in slots."""
+    return int((np.diff(np.asarray(slice_ptr)) // SLICE).max(initial=0))
+
+
+def _sliced_diag(slice_ptr, runs, val, nrows, ncols, nnz) -> SlicedDiag:
+    return SlicedDiag(_tensor(slice_ptr), *map(_tensor, runs[:2]), _tensor(val),
+                      *map(_tensor, runs[2:]), nrows, ncols, nnz,
+                      widest_slice(slice_ptr))
+
+
+def sliced_diag_from_scipy(A, dtype=torch.float32) -> SlicedDiag:
+    """Convert any scipy sparse matrix to SlicedDiag (host tensors);
+    duplicates are summed."""
+    A, slice_ptr, col, val, real = _sliced_entries(A, dtype, None)
+    runs = sliced_diag_arrays(slice_ptr, col, real, A.shape[1])
+    return _sliced_diag(slice_ptr, runs, val, *A.shape, int(A.nnz))
+
+
+def sliced_layout_from_scipy(A, dtype=torch.float32, size_cap: int | None = None):
+    """Any scipy sparse matrix as SlicedDiag or SlicedEll, whichever
+    streams fewer bytes per apply (:func:`smaller_sliced_diag`); None where
+    the layout would store more than ``size_cap`` entries."""
+    got = _sliced_entries(A, dtype, size_cap)
+    if got is None:
+        return None
+    A, slice_ptr, col, val, real = got
+    nr, nc = A.shape
+    runs = smaller_sliced_diag(slice_ptr, col, real, nc, val.dtype.itemsize)
+    if runs is None:
+        return SlicedEll(_tensor(slice_ptr), _tensor(col), _tensor(val), nr, nc,
+                         int(A.nnz), pick_tpr(slice_ptr, nr))
+    return _sliced_diag(slice_ptr, runs, val, nr, nc, int(A.nnz))
 
 
 def sliced_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
@@ -257,7 +443,7 @@ def sliced_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
     from a sorted csr matrix).  Returns ``(slice_ptr (n_slices + 1,)
     int64, col (E,) int32, src (E,))`` where ``src`` indexes the flattened
     (K*N,) ELL values, with K*N meaning padding (route to an appended
-    zero), as in :func:`shuffle_plan_arrays`."""
+    zero), as in :func:`diag_plan_arrays`."""
     idx = np.asarray(idx)
     k, n = idx.shape
     row, slot = np.nonzero(np.asarray(mask, dtype=bool).T)   # row-major
@@ -271,6 +457,17 @@ def sliced_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
     src = np.full(entries, k * n, src_dtype)
     src[dest] = slot.astype(np.int64) * n + row
     return slice_ptr, col, src
+
+
+def sliced_diag_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
+    """SlicedDiag layout of a transposed-ELL pattern (host numpy): the
+    plan of :func:`sliced_plan_arrays` with its columns turned into runs by
+    :func:`sliced_diag_arrays`.  Returns ``(slice_ptr, base, delta,
+    wide_ptr, wide_col, src)``, ``src`` as in :func:`sliced_plan_arrays`
+    (K*N marks padding)."""
+    slice_ptr, col, src = sliced_plan_arrays(idx, mask, ncols)
+    real = src != np.asarray(idx).size
+    return (slice_ptr, *sliced_diag_arrays(slice_ptr, col, real, ncols), src)
 
 
 def _check_cols(A, x):
@@ -287,6 +484,9 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     _check_cols(A, x)
     if isinstance(A, SlicedEll):
         return _sliced_kernel(A.slice_ptr, A.col, A.val, x, A.nrows, A.tpr)
+    if isinstance(A, SlicedDiag):
+        return _sliced_diag_kernel(A.slice_ptr, A.base, A.delta, A.val, A.wide_ptr,
+                                   A.wide_col, x, A.nrows, A.wmax)
     if isinstance(A, ShuffleEll):
         return _shuffle_kernel(A.q, A.r, A.v, x, A.nrows)
     if isinstance(A, DiagEll):
@@ -420,24 +620,6 @@ def diag_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
     r[pos] = cols & 127
     src[pos] = ell_pos
     return start, tg, r.reshape(kp, s_pad, 128), src.reshape(kp, s_pad, 128)
-
-
-def shuffle_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
-    """Shuffle layout of a transposed-ELL pattern (host numpy).
-
-    ``idx (K, N)`` column indices, ``mask (K, N)`` real-vs-padding.
-    Returns ``(q (KP, S) i32, r (KP, S, 128) int8, src (KP, S, 128) i32)``
-    where ``src`` indexes the flattened (K*N,) ELL values, with K*N
-    meaning padding (route to an appended zero).
-    """
-    k, n = np.asarray(idx).shape
-    ell_pos, rows, cols = _pattern_coo(idx, mask)
-    kp, s, q, pos = _shuffle_layout(rows, cols, n, ncols)
-    r = np.zeros((kp * s * 128,), np.int8)  # lanes 0..127
-    src = np.full((kp * s * 128,), k * n, np.int32)
-    r[pos] = cols & 127
-    src[pos] = ell_pos
-    return q, r.reshape(kp, s, 128), src.reshape(kp, s, 128)
 
 
 @dataclasses.dataclass

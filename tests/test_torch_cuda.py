@@ -9,8 +9,9 @@ so on a GPU machine without JAX it runs as
 Tolerances: relative to the largest output entry, 1e-5 in f32 and 1e-12
 in f64 (the kernels sum slots in their own order, the plain versions in
 torch's reduction order).  Single-device solves go through sliced_spmv
-(and diag_spmv where a level is DiagEll), the halo path through
-shuffle_spmv.
+(and sliced_diag_spmv where a level past the diagonal-run gate is
+SlicedDiag), the halo path through shuffle_spmv; diag_spmv runs on the
+JAX package's DiagEll layout only.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 from gravo_mg_tpu_torch import MultigridSolver, sparse
 from gravo_mg_tpu_torch.ops import diag_spmv as dmod
 from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
+from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
 from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
 from gravo_mg_tpu_torch.utils.laplacian import cotan_laplacian, mass_voronoi
 from gravo_mg_tpu_torch.utils.meshgen import icosphere
@@ -162,6 +164,65 @@ def test_diag_kernel_matches_plain(cuda, n, nnz, bw, seed, tg, dtype, d):
     _close(y, ref, dtype)
 
 
+def _torus(nu, nv):
+    from gravo_mg_tpu_torch.utils.laplacian import mass_barycentric
+    from gravo_mg_tpu_torch.utils.meshgen import torus_mesh
+
+    V, F = torus_mesh(nu, nv)
+    return V, F, cotan_laplacian(V, F), mass_barycentric(V, F), neighbors_from_faces(F)
+
+
+SLICED_DIAG_MATRICES = {
+    "banded": (1000, 1000, 7000, 30, 0),
+    "large": (70000, 70000, 400000, 100, 1),
+    "ring_wraps": (1 << 20, 1 << 20, 4 << 20, 64, 12),   # staged ring refills
+    "all_wide": (5000, 5000, 10000, None, 2),
+    "restriction": (20000, 3000, 60000, 20, 3),
+    "prolongation": (3000, 20000, 24000, 40, 4),
+    "small": (130, 130, 400, None, 5),
+    "cols_77": (200, 77, 500, None, 9),       # rows, cols not multiples of 32
+    "empty_slices": (300, 300, 0, None, 10),
+}
+
+
+def _sliced_diag_matrix(kind):
+    if kind == "torus":                       # mixed: the v-wrap slices are wide
+        _, _, S, M, _ = _torus(40, 300)
+        return (1e-6 * M + S).tocsr()
+    return _sliced_matrix(*SLICED_DIAG_MATRICES[kind])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sdmod.VARIANTS)
+@pytest.mark.parametrize("d", [1, 3, 6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", list(SLICED_DIAG_MATRICES) + ["torus"])
+def test_sliced_diag_kernel_matches_plain(cuda, kind, dtype, d, variant):
+    """Both variants (direct, and staged through shared memory) against
+    the plain version and a host f64 product, on delta, wide and empty
+    slices."""
+    A = _sliced_diag_matrix(kind)
+    op = sparse.sliced_diag_from_scipy(A, dtype=dtype).to(cuda)
+    info = op.info()
+    if kind == "all_wide":
+        assert info["wide_slices"] == info["slices"]
+    if kind == "torus":
+        assert 0 < info["wide_slices"] < info["slices"]
+    x = _x(A.shape[1], d, dtype, 3, cuda)
+    before = sdmod.launches
+    y = sdmod.sliced_diag_spmv(op.slice_ptr, op.base, op.delta, op.val, op.wide_ptr,
+                               op.wide_col, x, op.nrows, op.wmax, variant)
+    torch.cuda.synchronize()
+    assert sdmod.launches == before + 1
+    ref = sdmod.sliced_diag_spmv_plain(op.slice_ptr, op.base, op.delta, op.val,
+                                       op.wide_ptr, op.wide_col, x, op.nrows)
+    assert y.shape == ref.shape and y.dtype == dtype
+    _close(y, ref, dtype)
+    host = torch.from_numpy(A @ x.double().cpu().numpy()).to(cuda, dtype)
+    _close(y, host, dtype)
+    _close(sparse.spmv(op, x), host, dtype)     # the preferred variant
+
+
 @pytest.mark.cuda
 def test_wrappers_validate_operands(cuda):
     q = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
@@ -189,38 +250,56 @@ def test_wrappers_validate_operands(cuda):
         slmod.sliced_spmv(ptr, col, val, x, 100, tpr=3)
     with pytest.raises(ValueError):
         slmod.sliced_spmv(ptr.cpu(), col, val, x, 100)
+    op = sparse.sliced_diag_from_scipy(_sliced_diag_matrix("banded")).to(cuda)
+    args = [op.slice_ptr, op.base, op.delta, op.val, op.wide_ptr, op.wide_col]
+    x = torch.zeros(op.ncols, device=cuda)
+    sdmod.sliced_diag_spmv(*args, x, op.nrows, op.wmax)
+    for k, bad in ((0, op.slice_ptr.int()), (1, op.base.long()), (2, op.delta.int()),
+                   (5, op.wide_col.long())):
+        with pytest.raises(TypeError):
+            sdmod.sliced_diag_spmv(*args[:k], bad, *args[k + 1:], x, op.nrows, op.wmax)
+    with pytest.raises(TypeError):
+        sdmod.sliced_diag_spmv(*args, x.double(), op.nrows, op.wmax)
+    with pytest.raises(ValueError):
+        sdmod.sliced_diag_spmv(*args, x, op.nrows + 64, op.wmax)   # slices disagree
+    with pytest.raises(ValueError):
+        sdmod.sliced_diag_spmv(*args[:3], op.val[:-32], *args[4:], x, op.nrows, op.wmax)
+    with pytest.raises(ValueError):
+        sdmod.sliced_diag_spmv(*args, x, op.nrows, op.wmax, "tiled")
+    with pytest.raises(ValueError):
+        sdmod.sliced_diag_spmv(*args[:5], op.wide_col.cpu(), x, op.nrows, op.wmax)
+    with pytest.raises(RuntimeError):       # a slice too wide for a stage
+        sdmod.sliced_diag_spmv(*args, x, op.nrows, 1 << 12, "staged")
+
+
+def _reset_launches():
+    smod.launches = dmod.launches = slmod.launches = sdmod.launches = 0
 
 
 @pytest.mark.cuda
 def test_solve_on_cuda_goes_through_both_kernels(cuda):
-    """sliced_spmv and diag_spmv (levels of >= 16 row groups are DiagEll),
-    and no shuffle_spmv: that kernel serves the halo path only."""
-    V, F = icosphere(4, bump=0.1)
-    S, M, neigh = cotan_laplacian(V, F), mass_voronoi(V, F), neighbors_from_faces(F)
-    lhs = (M + 1e-3 * S).tocsr()
-    rhs = M @ V
+    """sliced_spmv and sliced_diag_spmv (the finest level, 128 row groups,
+    passes the gate of 16 and is SlicedDiag), and neither shuffle_spmv
+    (the halo path's) nor diag_spmv (the JAX layout's)."""
+    V, F, S, M, neigh = _torus(128, 128)
+    lhs = (1e-6 * M + S).tocsr()
+    rhs = M @ np.random.default_rng(1).standard_normal((len(V), 2))
     runs = {}
     for device in ("cpu", "cuda"):
-        solver = MultigridSolver(V, neigh, M, lower_bound=100, device=device,
+        solver = MultigridSolver(V, neigh, M, lower_bound=200, device=device,
                                  diag_min_groups=16)
-        smod.launches = dmod.launches = slmod.launches = 0
+        _reset_launches()
         x = solver.solve(lhs, rhs)
+        ctx = next(iter(solver._contexts.values()))
         runs[device] = (solver.solver_timing["iterations"],
-                        solver.residual(lhs, rhs, x),
-                        slmod.launches, dmod.launches, smod.launches)
-    iters, res, n_sliced, n_diag, n_shuffle = runs["cuda"]
-    assert iters == runs["cpu"][0]
+                        solver.residual(lhs, rhs, x), slmod.launches,
+                        sdmod.launches, dmod.launches, smod.launches,
+                        type(ctx.levels[0].A))
+    iters, res, n_sliced, n_sdiag, n_diag, n_shuffle, kind = runs["cuda"]
+    assert iters == runs["cpu"][0] and kind is sparse.SlicedDiag
     assert res <= 1e-4
-    assert n_sliced > 0 and n_diag > 0 and n_shuffle == 0
-    assert runs["cpu"][2:] == (0, 0, 0)
-
-
-def _torus(nu, nv):
-    from gravo_mg_tpu_torch.utils.laplacian import mass_barycentric
-    from gravo_mg_tpu_torch.utils.meshgen import torus_mesh
-
-    V, F = torus_mesh(nu, nv)
-    return V, F, cotan_laplacian(V, F), mass_barycentric(V, F), neighbors_from_faces(F)
+    assert n_sliced > 0 and n_sdiag > 0 and n_diag == 0 and n_shuffle == 0
+    assert runs["cpu"][2:6] == (0, 0, 0, 0)
 
 
 @pytest.mark.cuda
@@ -230,10 +309,11 @@ def test_cg_on_cuda_launches_shuffle_and_meets_tol(cuda):
     V, F, S, M, neigh = _torus(256, 256)          # 65536 vertices
     lhs = (M + 1e-3 * S).tocsr()
     rhs = M @ np.random.default_rng(42).standard_normal((len(V), 3))
-    slmod.launches = 0
+    _reset_launches()
     timing = {}
     x = cg_solve(lhs, rhs, tol=1e-4, max_iter=2000, device=cuda, timing=timing)
-    assert slmod.launches >= timing["cg_iterations"] > 0
+    # the torus operator is SlicedDiag (the byte rule)
+    assert sdmod.launches >= timing["cg_iterations"] > 0 == slmod.launches
     assert np.linalg.norm(lhs @ x - rhs) <= 1.1e-4 * np.linalg.norm(rhs)
 
 
@@ -252,15 +332,15 @@ def test_min_quad_on_cuda_matches_cpu(cuda):
     for device in ("cpu", "cuda"):
         solver = MultigridSolver(V, neigh, M, lower_bound=200, device=device,
                                  diag_min_groups=16)
-        slmod.launches = dmod.launches = 0
+        _reset_launches()
         mq = MinQuadWithFixedMG(solver, lhs, known, tol=1e-4, max_iter=20,
                                 criteria=2)
-        out[device] = mq.solve(B, Y)[0], slmod.launches, dmod.launches
+        out[device] = mq.solve(B, Y)[0], slmod.launches, sdmod.launches, dmod.launches
     x_cpu, x_gpu = out["cpu"][0], out["cuda"][0]
     assert np.array_equal(x_gpu[known], Y)
     assert np.linalg.norm(x_gpu - x_cpu) <= 1e-4 * np.linalg.norm(x_cpu)
-    assert out["cuda"][1] > 0 and out["cuda"][2] > 0
-    assert out["cpu"][1:] == (0, 0)
+    assert out["cuda"][1] > 0 and out["cuda"][2] > 0 and out["cuda"][3] == 0
+    assert out["cpu"][1:] == (0, 0, 0)
 
 
 @pytest.mark.cuda
@@ -275,9 +355,12 @@ def test_sig21_solve_on_cuda_goes_through_both_kernels(cuda):
                              diag_min_groups=16)
     solver.construct_sig21_hierarchy(F)
     solver.toggle_hierarchy(Hierarchy.SIG21)
-    slmod.launches = dmod.launches = 0
+    _reset_launches()
     x = solver.solve(lhs, rhs)
-    assert slmod.launches > 0 and dmod.launches > 0
+    ctx = next(iter(solver._contexts.values()))
+    finest_diag = isinstance(ctx.levels[0].A, sparse.SlicedDiag)   # the byte rule
+    assert slmod.launches > 0 and (sdmod.launches > 0) == finest_diag
+    assert dmod.launches == 0
     assert solver.residual(lhs, rhs, x) <= 1e-4
 
 
@@ -321,9 +404,10 @@ def test_halo_solve_on_cuda_matches_single_device(cuda, halo_torus, D, dtype, d)
     ctx = solver._context(lhs)
     x1, it1, _, _ = ctx.solve(rhs, tol=tol, max_iter=50)
     hctx = HaloContext(ctx, make_solver_mesh(D, cuda))
-    smod.launches = dmod.launches = slmod.launches = 0
+    _reset_launches()
     x2, it2, res = hctx.solve(rhs, tol=tol, max_iter=50)
     assert smod.launches > 0 and dmod.launches == 0 and slmod.launches == 0
+    assert sdmod.launches == 0
     assert res <= tol and abs(it1 - it2) <= 1
     rel = 1e-4 if dtype == torch.float32 else 1e-9
     assert np.abs(x1 - x2).max() <= rel * np.abs(x1).max()

@@ -7,7 +7,9 @@
 * ``max_iter`` is honoured exactly: one operator apply per iteration and
   no more (the JAX package runs whole 500-iteration chunks).
 * A matrix with one dense row pads only its own 32-row slice of the
-  SlicedEll operator; past the size cap CG takes the transposed-ELL one.
+  sliced operator (SlicedDiag there, with no wide slice: past the fourth
+  slot the dense row is its slice's one real lane); past the size cap CG
+  takes the transposed-ELL one.
 * Without ``device``, CG runs on the card and raises where there is none.
 """
 
@@ -18,8 +20,7 @@ import scipy.sparse as sp
 import torch
 
 from gravo_mg_tpu.solver import direct as ref_direct
-from gravo_mg_tpu_torch import EllMatrix, MultigridSolver, SlicedEll
-from gravo_mg_tpu_torch.ops import sliced_spmv as smod
+from gravo_mg_tpu_torch import EllMatrix, MultigridSolver, SlicedDiag
 from gravo_mg_tpu_torch.solver import direct
 
 torch.set_num_threads(2)
@@ -53,13 +54,13 @@ def test_cg_honours_max_iter_exactly(sphere_mesh, max_iter, monkeypatch):
     m = sphere_mesh
     lhs = (1e-6 * m["M"] + m["S"]).tocsr()    # far from 1e-10 in max_iter
     calls = []
-    plain = smod.sliced_spmv_plain
+    plain = direct.spmv
 
     def counting(*args):
         calls.append(1)
         return plain(*args)
 
-    monkeypatch.setattr(smod, "sliced_spmv_plain", counting)
+    monkeypatch.setattr(direct, "spmv", counting)   # every operator apply
     timing = {}
     x = direct.cg_solve(lhs, _rhs(m, 1), tol=1e-10, max_iter=max_iter,
                         device="cpu", timing=timing)
@@ -78,8 +79,9 @@ def test_cg_dense_row_takes_ell_path(monkeypatch):
     A[2:, 0] = 1e-3
     A = A.tocsr()
     op = direct.cg_operator(A)
-    assert isinstance(op, SlicedEll)
+    assert isinstance(op, SlicedDiag)        # the byte rule's pick
     info = op.info()
+    assert info["wide_slices"] == 0          # every slot fits int8 deltas
     # the dense row widens its own slice only: 32 rows x n slots
     assert info["max_width"] == n
     assert info["entries"] == 32 * n + 32 * 4 * (info["slices"] - 1)

@@ -111,8 +111,6 @@ def test_plan_arrays_match_reference():
     A = sp.coo_matrix((vals, (rows, cols)), shape=(6000, 6000))
     idx, mask = _ell_of(A)
     _assert_same(mg._ell_pattern(A.tocsr()), (idx, mask))
-    _assert_same(sparse.shuffle_plan_arrays(idx, mask, 6000),
-                 ref_sparse.shuffle_plan_arrays(idx, mask, 6000))
     _assert_same(sparse.diag_plan_arrays(idx, mask, 6000),
                  ref_sparse.diag_plan_arrays(idx, mask, 6000))
 

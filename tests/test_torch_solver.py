@@ -4,8 +4,10 @@
   reference context by convert.py): f32 within 1e-4 of ||x||, f64 within
   1e-10 (summation order and Chebyshev coefficient rounding differ).
 * Facade solves on the 10k sphere, smoothing and Poisson, and with every
-  level planned as DiagEll: equal cycle counts, per-cycle residuals within
-  5% relative, host-verified residual <= 1e-4.
+  level past the diagonal-run gate (the JAX package: every level DiagEll;
+  the port: each level SlicedDiag or SlicedEll, whichever streams fewer
+  bytes): equal cycle counts, per-cycle residuals within 5% relative,
+  host-verified residual <= 1e-4.
 """
 
 import dataclasses
@@ -18,7 +20,7 @@ import torch
 from gravo_mg_tpu import MultigridSolver as RefSolver
 from gravo_mg_tpu.hierarchy.builder import build_hierarchy as ref_build
 from gravo_mg_tpu.solver import multigrid as ref_mg
-from gravo_mg_tpu_torch import MultigridSolver, convert
+from gravo_mg_tpu_torch import MultigridSolver, convert, sparse
 from gravo_mg_tpu_torch.solver import multigrid as mg
 
 torch.set_num_threads(2)
@@ -51,7 +53,8 @@ def test_cycle_matches_reference(sphere_mesh, ref_hierarchy, cycle, d, dtype, to
     ref = np.asarray(ref_mg.cycle_step(
         ctx.cfg, ctx.levels, ctx.coarse_op, jnp.asarray(b), jnp.asarray(x0)
     ))
-    levels, coarse = convert.levels_from_reference(ctx.levels, ctx.coarse_op)
+    levels, coarse = convert.levels_from_reference(ctx.levels, ctx.coarse_op,
+                                                   device="cpu")
     cfg = mg.SolverConfig(**{
         f.name: getattr(ctx.cfg, f.name) for f in dataclasses.fields(mg.SolverConfig)
     })
@@ -68,8 +71,8 @@ def test_facade_solve_matches_reference(medium_mesh, case, monkeypatch):
     lhs, rhs = _system(m, poisson=case == "poisson")
     kw = {}
     if case == "diag_levels":
-        # Every level as DiagEll: the reference needs both overrides (its
-        # size gate and its TPU-only tile gate), the port one argument.
+        # Every level past the gate: the reference needs both overrides
+        # (its size gate and its TPU-only tile gate), the port one argument.
         monkeypatch.setenv("GRAVO_MG_DIAG_MIN_GROUPS", "1")
         monkeypatch.setenv("GRAVO_MG_DIAG_ANY_TG", "1")
         kw["diag_min_groups"] = 1
@@ -89,8 +92,13 @@ def test_facade_solve_matches_reference(medium_mesh, case, monkeypatch):
     np.testing.assert_allclose(trace, trace_ref, rtol=0.05)
     assert port.residual(lhs, rhs, x) <= 1e-4
     ctx = next(iter(port._contexts.values()))
-    kinds = {type(lvl.A).__name__ for lvl in ctx.levels}
-    assert kinds == ({"DiagEll"} if case == "diag_levels" else {"SlicedEll"})
+    kinds = [type(lvl.A).__name__ for lvl in ctx.levels]
+    want = ["SlicedEll"] * len(kinds)
+    if case == "diag_levels":    # the layout the byte rule picks, level by level
+        want = [type(sparse.sliced_layout_from_scipy(A)).__name__
+                for A in ctx.chain_csr[:len(kinds)]]
+        assert "SlicedDiag" in want
+    assert kinds == want
 
 
 def test_facade_reuses_context_and_updates_values(sphere_mesh):
@@ -123,6 +131,16 @@ def test_solve_context_defaults_to_cuda_and_raises_without_gpu(
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         mg.MultigridSolveContext(convert.hierarchy_from_reference(ref_hierarchy),
                                  lhs, m["M"], mg.SolverConfig())
+
+
+def test_levels_from_reference_defaults_to_cuda_and_raises_without_gpu(
+        sphere_mesh, ref_hierarchy, monkeypatch):
+    lhs, _ = _system(sphere_mesh)
+    ctx = ref_mg.MultigridSolveContext(ref_hierarchy, lhs, sphere_mesh["M"],
+                                       ref_mg.SolverConfig())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        convert.levels_from_reference(ctx.levels, ctx.coarse_op)
 
 
 @pytest.mark.parametrize("poisson", [False, True])
