@@ -6,8 +6,9 @@
 Phases (each prints its own lines, with the kernel launch counts of that
 phase, counted from 0; any failure exits non-zero before the last line):
 
-1. build: the native host library (g++) and the four CUDA kernels
-   (nvcc, sm_90a) from the sources in this checkout, all compilers at once;
+1. build: the native host library (g++) and the CUDA kernels (nvcc,
+   sm_90a; four sources, five kernels) from the sources in this
+   checkout, all compilers at once;
 2. kernels: each kernel against its plain PyTorch version on the card at
    real operator shapes, d = 1 and 3, f32 (plus one f64 check each), with
    times and bounds: every SlicedEll operator of the 1M Poisson context
@@ -22,9 +23,13 @@ phase, counted from 0; any failure exits non-zero before the last line):
    operator, MinQuad's finest level) through both variants of
    sliced_diag_spmv, beside diag_spmv on A0's DiagEll (the route they
    replaced, built here), cuSPARSE and the plain version, with bytes per
-   apply, the layout's bound and the format-neutral one; the halo phase's
-   stacked interior A0 (4 partitions, one ShuffleEll) through
-   shuffle_spmv and cuSPARSE;
+   apply, the layout's bound and the format-neutral one; the halo
+   path's parts (1M over 4 partitions): the stacked A0 interior
+   (sliced_diag_spmv), the stacked U0^T interior (sliced_spmv) and the
+   compact halo parts of A0 and U0^T (halo_spmv), each against its plain
+   version and cuSPARSE on the same CSR, with its bound, beside the
+   route they replaced, the old stacked A0 ShuffleEll through
+   shuffle_spmv;
 3. smoothing: the 10k icosphere(5, bump=0.15) smoothing solve
    (M + 1e-3 S, rhs M @ V) through MultigridSolver(device="cuda"),
    checked against a host direct solve;
@@ -34,8 +39,10 @@ phase, counted from 0; any failure exits non-zero before the last line):
    dispatched cycle by kernel, device idle share);
    halo: the same system on phase poisson's context over 4 row partitions
    (``parallel.halo.HaloContext``) held by one NCCL rank on this card
-   (one-rank process group, ``file://`` rendezvous): cold and warm solves
-   against phase poisson's solution, one warm solve under torch.profiler;
+   (one-rank process group, ``file://`` rendezvous): each part's layout,
+   stored entries and bytes per apply, the halo parts' bytes per cycle,
+   cold and warm solves against phase poisson's solution, one warm solve
+   under torch.profiler;
 5. cg: ``solver.cg_solve`` on the same torus, lhs M + 1e-3 S, rhs
    M @ randn (seed 42), tol 1e-4, max_iter 2000;
 6. minquad: MinQuadWithFixedMG on that solver (built with the 1M system,
@@ -189,7 +196,8 @@ class Launches:
     """Per-phase kernel launch counts (reset to 0 before each phase) and
     their sum over the solve phases."""
 
-    NAMES = ("sliced_spmv", "diag_spmv", "shuffle_spmv", "sliced_diag_spmv")
+    NAMES = ("sliced_spmv", "diag_spmv", "shuffle_spmv", "sliced_diag_spmv",
+             "halo_spmv")
 
     def __init__(self, *mods):
         self.mods = dict(zip(self.NAMES, mods))
@@ -250,13 +258,16 @@ def trace_summary(prof, label, cycles):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     comp_us = us(comp)
     per = max(cycles, 1)
-    spmv = []
+    spmv, spmv_us = [], 0.0
     for name in Launches.NAMES:
         # whole identifier: diag_spmv_kernel is inside sliced_diag_spmv_kernel
         pat = re.compile(rf"(?<![A-Za-z_]){name}_kernel")
         evs = [e for e in comp if pat.search(e.name)]
+        spmv_us += us(evs)
         spmv.append(f"{name} {len(evs) / per:.1f} launches {us(evs) / 1000 / per:.4f} "
                     f"ms per cycle (share {us(evs) / max(comp_us, 1e-9):.3f})")
+    spmv.append(f"all SpMV kernels {spmv_us / 1000 / per:.4f} ms per cycle "
+                f"(share {spmv_us / max(comp_us, 1e-9):.3f})")
     return (f"{len(kern)} kernel events ({len(nccl)} NCCL, {us(nccl) / 1000:.3f} ms); "
             f"compute kernel time {comp_us / 1000:.3f} ms over {cycles} dispatched "
             f"cycles ({comp_us / 1000 / per:.4f} ms per cycle, "
@@ -264,6 +275,38 @@ def trace_summary(prof, label, cycles):
             + f"; device busy {busy / 1000:.3f} of {span / 1000:.3f} ms (idle share "
             f"{1 - busy / span:.3f}); top: "
             + ", ".join(f"{k} {v / 1000:.3f} ms" for k, v in top))
+
+
+def layout_csr(L):
+    """The real entries of a SlicedEll or SlicedDiag on the card as a
+    scipy csr matrix (the cuSPARSE yardstick's input)."""
+    from gravo_mg_tpu_torch.ops.sliced_diag_spmv import sliced_diag_columns
+    from gravo_mg_tpu_torch.ops.sliced_spmv import entry_rows
+
+    cols = (sliced_diag_columns(L.slice_ptr, L.base, L.delta, L.wide_ptr, L.wide_col)
+            if hasattr(L, "delta") else L.col.long())
+    keep = L.val != 0
+    rows = entry_rows(L.slice_ptr)[keep]
+    return sp.csr_matrix((L.val[keep].double().cpu().numpy(),
+                          (rows.cpu().numpy(), cols[keep].cpu().numpy())),
+                         shape=(L.nrows, L.ncols))
+
+
+def stacked_shuffle(op, p_in, p_out, dev):
+    """The interior parts of a DistOp's partitions as one ShuffleEll on the
+    card (the layout and route the halo path ran before it moved to the
+    sliced layouts): partition j's slots source blocks offset by j * p_in
+    / 128 and fill output row groups j * S ..."""
+    import torch
+    from gravo_mg_tpu_torch.sparse import ShuffleEll
+
+    D, kp, s = op.q.shape
+    q = op.q + (np.arange(D, dtype=np.int32) * (p_in // 128))[:, None, None]
+    q = np.ascontiguousarray(q.transpose(1, 0, 2)).reshape(kp, D * s)
+    r = np.ascontiguousarray(op.r.transpose(1, 0, 2, 3)).reshape(kp, D * s, 128)
+    v = np.ascontiguousarray(op.v.transpose(1, 0, 2, 3)).reshape(kp, D * s, 128)
+    return ShuffleEll(torch.from_numpy(q), torch.from_numpy(r), torch.from_numpy(v),
+                      D * p_out, D * p_in).to(dev)
 
 
 def rel_residual_f64(A, x, b):
@@ -283,11 +326,12 @@ def main():
     from gravo_mg_tpu_torch.models import ConformalFlow
     from gravo_mg_tpu_torch.ops import build
     from gravo_mg_tpu_torch.ops import diag_spmv as dmod
+    from gravo_mg_tpu_torch.ops import halo_spmv as hmod
     from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
     from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
     from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
     from gravo_mg_tpu_torch.parallel.halo import (
-        PartitionedOp, _build_dist_op, make_solver_mesh, partition_rows,
+        PartitionedOp, _build_dist_op, _halo_plan, make_solver_mesh, partition_rows,
     )
     from gravo_mg_tpu_torch.solver.direct import cg_operator
     from gravo_mg_tpu_torch.solver.multigrid import _ell_pattern, _ell_values
@@ -317,7 +361,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     dev = torch.device("cuda")
-    counts = Launches(slmod, dmod, smod, sdmod)
+    counts = Launches(slmod, dmod, smod, sdmod, hmod)
     trace_dir = tempfile.mkdtemp(prefix="gravo_trace_")
     atexit.register(shutil.rmtree, trace_dir, True)
 
@@ -368,12 +412,6 @@ def main():
         torch.cuda.synchronize()
         t_setup = time.perf_counter() - t0
         A_cg = cg_operator(lhs_cg).to(dev)
-        # Phase halo's stacked interior A0 (4 partitions, one ShuffleEll),
-        # for phase kernels only; phase halo builds its own context.
-        nl0, P0 = partition_rows(n, 4)
-        A0_stacked = PartitionedOp(
-            _build_dist_op(ctx.chain_csr[0], 4, nl0, nl0, ctx.dtype),
-            make_solver_mesh(4, "cuda"), P0, P0, ctx.dtype).A
         # MinQuad's reduced context (phase minquad; its finest level is a
         # phase-kernels operator)
         rng3 = np.random.default_rng(3)
@@ -692,9 +730,126 @@ def main():
             + f"; solves run {sdmod.PREFERRED}")
         del D0, sdiag_cases
 
-        # the halo path's stacked interior A0 through shuffle_spmv, beside
-        # cuSPARSE on the same 4 stacked blocks as one CSR matrix
-        A = A0_stacked
+        # The halo path's parts, 1M over 4 partitions on one rank, as phase
+        # halo lays them out: the stacked A0 interior (SlicedDiag), the
+        # stacked U0^T interior (SlicedEll) and the compact halo parts of
+        # both, each against its plain version and cuSPARSE on the same
+        # CSR; then the old stacked A0 ShuffleEll through shuffle_spmv (the
+        # route they replaced).
+        n1 = ctx.chain_csr[1].shape[0]
+        nl0, P0 = partition_rows(n, 4)
+        nl1, P1 = partition_rows(n1, 4)
+        mesh4 = make_solver_mesh(4, "cuda")
+        U0T_csr = ctx.U_csr[0].T.tocsr()
+        t0 = time.perf_counter()
+        pA0 = PartitionedOp(chain0, _halo_plan(chain0, 4, nl0, nl0), mesh4, P0, P0,
+                            ctx.dtype, ctx.diag_min_groups)
+        pU0T = PartitionedOp(U0T_csr, _halo_plan(U0T_csr, 4, nl1, nl0), mesh4, P0, P1,
+                             ctx.dtype)
+        log(f"phase kernels: halo path parts of A0 and U0^T over 4 partitions built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        halo_cases = [("A0 interior", pA0, False), ("U0T interior", pU0T, False),
+                      ("A0 halo part", pA0, True), ("U0T halo part", pU0T, True)]
+        for label, pop, part in halo_cases:
+            L = pop.Ah if part else pop.A
+            inf, pinf = L.info(), pop.info()
+            csr = layout_csr(L)
+            lib = csr_tensor(csr, torch.float32, dev)
+            nnz = csr.nnz
+            diag = isinstance(L, SlicedDiag)
+            kind = "halo_spmv" if part else ("sliced_diag_spmv" if diag else "sliced_spmv")
+            nbytes = pinf["halo_bytes"] if part else pinf["interior_bytes"]
+            log(f"phase kernels: halo {label}: {type(L).__name__} rows {L.nrows} cols "
+                f"{L.ncols} nnz {nnz}, {inf['entries']} stored entries "
+                f"({inf['entries'] / max(nnz, 1):.2f}x nnz), "
+                + (f"{inf['wide_slices']} of {inf['slices']} slices wide, " if diag
+                   else f"{L.tpr} threads per row, ")
+                + f"{nbytes / 1e6:.3f} MB per f32 apply at d=1")
+            for d in (1, 3):
+                xs = rng.standard_normal((L.ncols,) if d == 1 else (L.ncols, d))
+                x = torch.from_numpy(xs).to(dev, torch.float32)
+                if part:
+                    y0 = torch.from_numpy(rng.standard_normal(
+                        (pop.A.nrows,) if d == 1 else (pop.A.nrows, d))).to(dev, torch.float32)
+                    hargs = (L.slice_ptr, L.col, L.val, pop.out_row, x)
+                    y_acc = y0.clone()        # the timed calls add into it
+                    fns = {"new": lambda: hmod.halo_spmv(*hargs, y_acc, L.tpr),
+                           "plain": lambda: hmod.halo_spmv_plain(*hargs, y_acc)}
+                    y_new = hmod.halo_spmv(*hargs, y0.clone(), L.tpr)
+                    y_ref = hmod.halo_spmv_plain(*hargs, y0.clone())
+                    compact = slmod.sliced_spmv_plain(L.slice_ptr, L.col, L.val, x, L.nrows)
+                elif diag:
+                    dargs = (L.slice_ptr, L.base, L.delta, L.val, L.wide_ptr, L.wide_col, x)
+                    fns = {"new": lambda: sdmod.sliced_diag_spmv(*dargs, L.nrows, L.wmax),
+                           "plain": lambda: sdmod.sliced_diag_spmv_plain(*dargs, L.nrows)}
+                    y_new, y_ref = fns["new"](), fns["plain"]()
+                    compact = y_ref
+                else:
+                    fns = {"new": lambda: slmod.sliced_spmv(L.slice_ptr, L.col, L.val, x,
+                                                            L.nrows, L.tpr),
+                           "plain": lambda: slmod.sliced_spmv_plain(L.slice_ptr, L.col,
+                                                                    L.val, x, L.nrows)}
+                    y_new, y_ref = fns["new"](), fns["plain"]()
+                    compact = y_ref
+                fns["library"] = lambda: library_apply(lib, x)
+                y_lib = fns["library"]()
+                torch.cuda.synchronize()
+                err, rel = rel_err(y_new, y_ref)
+                _, rel_lib = rel_err(y_lib, compact)
+                ok = rel <= TOL_F32 and rel_lib <= TOL_F32 and bool(torch.isfinite(y_new).all())
+                ev, ms = time_in_turns(fns, ["new", "library", "plain", "library", "new"])
+                if part:   # y read and written at its rows, out_row, real halo positions
+                    bound = spmv_bound(nnz, L.nrows, pop.halo_real, d, 4,
+                                       nnz * 8 + L.nrows * (4 + 4 * d))
+                    bounds = [("", bound)]
+                else:
+                    neutral = spmv_bound(nnz, L.nrows, L.ncols, d, 4)
+                    bound = neutral
+                    bounds = [("format-neutral ", neutral)]
+                    if diag:
+                        ptr, wptr = L.slice_ptr.cpu().numpy(), L.wide_ptr.cpu().numpy()
+                        bound = spmv_bound(nnz, L.nrows, L.ncols, d, 4,
+                                           sliced_diag_bytes(ptr, wptr, 4))
+                        bounds.insert(0, ("layout ", bound))
+                log(f"phase kernels: {kind} halo {label} d={d} f32 device us: kernel "
+                    f"{ms['new'] * 1e3:.2f}, library (cuSPARSE) {ms['library'] * 1e3:.2f}, "
+                    f"plain {ms['plain'] * 1e3:.1f} (events per call: kernel "
+                    f"{ev['new'] * 1e3:.2f}, library {ev['library'] * 1e3:.2f}); "
+                    + "; ".join(f"{what}bound {b[0] * 1e3:.2f} us ({b[1]}), share kernel "
+                                f"{b[0] / ms['new']:.3f} library {b[0] / ms['library']:.3f}"
+                                for what, b in bounds)
+                    + f"; max_abs_err {err:.3e} rel {rel:.3e}, library rel {rel_lib:.3e} "
+                    f"(tol {TOL_F32}) {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"{kind} halo {label} d={d} disagrees")
+                keep(kind, err, *((ms["new"], ms["plain"], bound, ms["library"])
+                                  if part and d == 1 and label == "U0T halo part" else ()))
+                del x, fns, y_new, y_ref, y_lib, compact
+            # f64: the same layouts with values widened exactly
+            x = torch.from_numpy(rng.standard_normal(L.ncols)).to(dev)
+            v64 = L.val.double()
+            if part:
+                y0 = torch.from_numpy(rng.standard_normal(pop.A.nrows)).to(dev)
+                hargs = (L.slice_ptr, L.col, v64, pop.out_row, x)
+                _, rel = rel_err(hmod.halo_spmv(*hargs, y0.clone(), L.tpr),
+                                 hmod.halo_spmv_plain(*hargs, y0.clone()))
+            elif diag:
+                dargs = (L.slice_ptr, L.base, L.delta, v64, L.wide_ptr, L.wide_col, x)
+                _, rel = rel_err(sdmod.sliced_diag_spmv(*dargs, L.nrows, L.wmax),
+                                 sdmod.sliced_diag_spmv_plain(*dargs, L.nrows))
+            else:
+                _, rel = rel_err(slmod.sliced_spmv(L.slice_ptr, L.col, v64, x, L.nrows, L.tpr),
+                                 slmod.sliced_spmv_plain(L.slice_ptr, L.col, v64, x, L.nrows))
+            log(f"phase kernels: {kind} halo {label} d=1 f64 rel {rel:.3e} (tol {TOL_F64})")
+            if not rel <= TOL_F64:
+                raise AssertionError(f"{kind} halo {label} f64 disagrees")
+            del x, v64, lib, csr
+        # the loop's last bindings hold ~110 MiB of card memory (A0's f64
+        # operands, U0^T's parts) that phase poisson's peak must not count
+        del pA0, pU0T, halo_cases, L, pop
+        y0 = y_acc = hargs = dargs = None
+
+        A = stacked_shuffle(_build_dist_op(chain0, 4, nl0, nl0, ctx.dtype), P0, P0, dev)
         nnz_h = int(torch.count_nonzero(A.v))
         hv = A.v.reshape(-1)
         keep_h = hv != 0
@@ -719,7 +874,7 @@ def main():
                 "plain": lambda: smod.shuffle_spmv_plain(A.q, A.r, A.v, x, A.nrows),
             }, ["kernel", "library", "plain", "library", "kernel"])
             bound = spmv_bound(nnz_h, A.nrows, A.ncols, d, 4)
-            log(f"phase kernels: shuffle_spmv halo A0 interior, 4 partitions stacked "
+            log(f"phase kernels: shuffle_spmv old halo A0 interior, 4 partitions stacked "
                 f"{tuple(A.r.shape)} d={d} f32 device us: kernel {ms['kernel'] * 1e3:.2f} "
                 f"library (cuSPARSE) {ms['library'] * 1e3:.2f} "
                 f"plain {ms['plain'] * 1e3:.1f}; bound {bound[0] * 1e3:.2f} us "
@@ -739,7 +894,7 @@ def main():
         log(f"phase kernels: shuffle_spmv halo A0 d=1 f64 rel {rel:.3e} (tol {TOL_F64})")
         if not rel <= TOL_F64:
             raise AssertionError("shuffle_spmv halo A0 f64 disagrees")
-        del x, v64, A, sliced_cases, sig21_U0T, A0_stacked, t21
+        del x, v64, A, sliced_cases, sig21_U0T, t21
         torch.cuda.empty_cache()
         log(f"kernels: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
@@ -842,12 +997,23 @@ def main():
         log(f"phase halo: backend {dist.get_backend()} world "
             f"{dist.get_world_size()} partitions {hmesh.n_partitions}")
         plan = hctx.plan_info()
-        for k, lv in enumerate(plan):
-            log(f"phase halo: level {k} nloc {lv['nloc']} " + " ".join(
-                f"{p}: halo {lv[p]['halo']} shifts {lv[p]['shifts']} "
-                f"KP {lv[p]['kp']} KPH {lv[p]['kph']} (halo part "
-                f"{lv[p]['halo_nnz']} nnz in {lv[p]['halo_lanes']} lanes);"
-                for p in ("A", "U", "UT")))
+        # applies per halo cycle (d = 1): each level's A in the smoother
+        # sweeps and its residual, A0 once more and M once in the
+        # criterion-2 residual check, each transfer once
+        parts = [(f"level {k} {p}", lv[p], 9 + (k == 0) if p == "A" else 1)
+                 for k, lv in enumerate(plan) for p in ("A", "U", "UT")]
+        parts.append(("M", hctx.M.info(), 1))
+        for label, info, _ in parts:
+            log(f"phase halo: {label}: halo {info['halo']} shifts {info['shifts']}; "
+                f"interior {info['interior']} {info['interior_entries']} entries "
+                f"{info['interior_bytes'] / 1e6:.3f} MB per apply; halo part "
+                f"{info['halo_rows']} rows, {info['halo_nnz']} nnz in "
+                f"{info['halo_entries']} entries, {info['halo_bytes'] / 1e3:.1f} kB per apply")
+        halo_mb = sum(w * info["halo_bytes"] for _, info, w in parts) / 1e6
+        inner_mb = sum(w * info["interior_bytes"] for _, info, w in parts) / 1e6
+        log(f"phase halo: per cycle at d=1 ({sum(w for *_, w in parts)} partitioned "
+            f"applies): halo parts {halo_mb:.3f} MB, interiors {inner_mb:.1f} MB; "
+            f"nloc per level {[lv['nloc'] for lv in plan]}")
         kw = dict(tol=1e-4, criteria=2, max_iter=50)
         counts.reset()
         t0 = time.perf_counter()
@@ -876,9 +1042,11 @@ def main():
             "rel diff < 1e-4": rel < 1e-4,
             "mean-free rel diff < 1e-3": rel0 < 1e-3,
             "level-0 halo < 5% of nloc": halo0 < 0.05 * plan[0]["nloc"],
-            "shuffle_spmv launched": launches["shuffle_spmv"] > 0,
+            "A0 interior SlicedDiag": plan[0]["A"]["interior"] == "SlicedDiag",
+            "halo_spmv launched": launches["halo_spmv"] > 0,
+            "sliced_diag_spmv launched": launches["sliced_diag_spmv"] > 0,
+            "no shuffle_spmv": launches["shuffle_spmv"] == 0,
             "no diag_spmv": launches["diag_spmv"] == 0,
-            "no sliced_diag_spmv": launches["sliced_diag_spmv"] == 0,
             "finite": bool(np.isfinite(xh).all()) and xh.shape == rhs.shape,
         }
         ok = all(checks.values())
@@ -1047,12 +1215,14 @@ def main():
         "diag_spmv": ("diag_spmv.cu", "gravo_mg_tpu/ops/diag_spmv.py:146"),
         "shuffle_spmv": ("shuffle_spmv.cu", "gravo_mg_tpu/ops/shuffle_spmv.py:87"),
         "sliced_diag_spmv": ("sliced_diag_spmv.cu", "gravo_mg_tpu/ops/diag_spmv.py:146"),
+        "halo_spmv": ("sliced_spmv.cu", "gravo_mg_tpu/ops/shuffle_spmv.py:87"),
     }
     # ms, plain_ms, bound and library_ms at U0^T d=1 (sliced_spmv, and
-    # shuffle_spmv on the JAX layout of the same matrix) and A0 d=1 f32
+    # shuffle_spmv on the JAX layout of the same matrix), A0 d=1 f32
     # (diag_spmv on A0's DiagEll, format-neutral bound; sliced_diag_spmv in
-    # the variant solves run, the layout's own bound); launches
-    # summed over the solve phases.
+    # the variant solves run, the layout's own bound) and the halo path's
+    # U0^T halo part d=1 f32 (halo_spmv; cuSPARSE on its compact CSR);
+    # launches summed over the solve phases.
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"gravo_mg_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -13,10 +13,29 @@
 // nothing here.  The sliced layout pads each 32-row slice only to its own
 // longest row (1.0-1.6x the nonzeros on the solver's operators).
 //
+// halo_spmv_kernel is the same loop over the halo part of a row-partitioned
+// operator (parallel/halo.py), which holds only the rows that have an entry
+// outside their partition: its row i is output row out_row[i], and the sum
+// is added to the y that the interior part's launch wrote before it on the
+// same stream,
+//
+//   y[out_row[i], j] += sum_k val[e] * halo[col[e], j],
+//
+// so interior launch + halo launch compute the JAX package's _dist_spmv
+// (gravo_mg_tpu/parallel/halo.py: lane_shuffle_fma over its interior and
+// halo parts, then their sum) in the same order: interior sum first, halo
+// sum added to it.  out_row is unique, so each output row has one writer and
+// no atomics are needed.  The TPU layout padded the halo part to KPH slots
+// over every row group of a partition (16.25M slot lanes for 12043 entries
+// on the 1M case's finest restriction); the compact part stores a slice per
+// 32 boundary rows.
+//
 // What bounds it: the stream of (col int32, val T) per stored entry,
 // nnz * (4 + sizeof(T)) bytes plus x and y once.  x is at most a few MB at
 // the sizes the solver runs (4 MB at 1M rows in f32), so the gathers from x
-// hit the H100's 50 MB L2 and no shared-memory staging is needed.
+// hit the H100's 50 MB L2 and no shared-memory staging is needed.  A halo
+// part is a few thousand rows: one or two waves of warps, bound by the
+// latency of a launch and a few dependent loads, not by bytes.
 //
 // Design.  A warp owns whole slices, so each slot's column and value loads
 // are contiguous across the warp's lanes:
@@ -39,12 +58,13 @@ namespace gravomg {
 
 constexpr int kSlice = 32;
 
-template <typename T, int TPR>
-__global__ void __launch_bounds__(kThreads)
-sliced_spmv_kernel(const int64_t* __restrict__ slice_ptr,
-                   const int32_t* __restrict__ col, const T* __restrict__ val,
-                   const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
-                   int64_t d) {
+// The rows of one slice: y[row] = sum (kScatter false), or
+// y[out_row[row]] += sum (kScatter true).
+template <typename T, int TPR, bool kScatter>
+__device__ __forceinline__ void sliced_rows(
+    const int64_t* __restrict__ slice_ptr, const int32_t* __restrict__ col,
+    const T* __restrict__ val, const int32_t* __restrict__ out_row,
+    const T* __restrict__ x, T* __restrict__ y, int64_t nrows, int64_t d) {
   constexpr int kRows = kSlice / TPR;   // rows per warp
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kSlice;
@@ -81,43 +101,75 @@ sliced_spmv_kernel(const int64_t* __restrict__ slice_ptr,
     }
   }
   if (sub == 0 && row < nrows) {
-    T* yr = y + row * d + j0;
+    if constexpr (kScatter) {
+      T* yr = y + static_cast<int64_t>(out_row[row]) * d + j0;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      if (j < nj) yr[j] = acc[j];
+      for (int j = 0; j < kCols; ++j)
+        if (j < nj) yr[j] += acc[j];
+    } else {
+      T* yr = y + row * d + j0;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (j < nj) yr[j] = acc[j];
+    }
   }
 }
 
 template <typename T, int TPR>
+__global__ void __launch_bounds__(kThreads)
+sliced_spmv_kernel(const int64_t* __restrict__ slice_ptr,
+                   const int32_t* __restrict__ col, const T* __restrict__ val,
+                   const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
+                   int64_t d) {
+  sliced_rows<T, TPR, false>(slice_ptr, col, val, nullptr, x, y, nrows, d);
+}
+
+template <typename T, int TPR>
+__global__ void __launch_bounds__(kThreads)
+halo_spmv_kernel(const int64_t* __restrict__ slice_ptr,
+                 const int32_t* __restrict__ col, const T* __restrict__ val,
+                 const int32_t* __restrict__ out_row,
+                 const T* __restrict__ halo, T* __restrict__ y, int64_t nrows,
+                 int64_t d) {
+  sliced_rows<T, TPR, true>(slice_ptr, col, val, out_row, halo, y, nrows, d);
+}
+
+// out_row == nullptr: sliced_spmv_kernel; else halo_spmv_kernel.
+template <typename T, int TPR>
 void launch_tpr(const int64_t* slice_ptr, const int32_t* col, const T* val,
-                const T* x, T* y, int64_t nrows, int64_t d,
-                cudaStream_t stream) {
+                const int32_t* out_row, const T* x, T* y, int64_t nrows,
+                int64_t d, cudaStream_t stream) {
   const int64_t slices = (nrows + kSlice - 1) / kSlice;
   const int64_t threads = slices * TPR * kSlice;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
                   static_cast<unsigned>((d + kCols - 1) / kCols));
-  sliced_spmv_kernel<T, TPR><<<grid, kThreads, 0, stream>>>(
-      slice_ptr, col, val, x, y, nrows, d);
+  if (out_row == nullptr)
+    sliced_spmv_kernel<T, TPR><<<grid, kThreads, 0, stream>>>(
+        slice_ptr, col, val, x, y, nrows, d);
+  else
+    halo_spmv_kernel<T, TPR><<<grid, kThreads, 0, stream>>>(
+        slice_ptr, col, val, out_row, x, y, nrows, d);
 }
 
 template <typename T>
 int launch_sliced_spmv(const void* slice_ptr, const void* col, const void* val,
-                       const void* x, void* y, int64_t nrows, int64_t d,
-                       int64_t tpr, void* stream) {
+                       const void* out_row, const void* x, void* y,
+                       int64_t nrows, int64_t d, int64_t tpr, void* stream) {
   if (nrows <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const auto* p = static_cast<const int64_t*>(slice_ptr);
   const auto* c = static_cast<const int32_t*>(col);
   const auto* v = static_cast<const T*>(val);
+  const auto* o = static_cast<const int32_t*>(out_row);
   const auto* xx = static_cast<const T*>(x);
   auto* yy = static_cast<T*>(y);
   auto st = static_cast<cudaStream_t>(stream);
   switch (tpr) {
-    case 1: launch_tpr<T, 1>(p, c, v, xx, yy, nrows, d, st); break;
-    case 2: launch_tpr<T, 2>(p, c, v, xx, yy, nrows, d, st); break;
-    case 4: launch_tpr<T, 4>(p, c, v, xx, yy, nrows, d, st); break;
-    case 8: launch_tpr<T, 8>(p, c, v, xx, yy, nrows, d, st); break;
-    case 16: launch_tpr<T, 16>(p, c, v, xx, yy, nrows, d, st); break;
-    case 32: launch_tpr<T, 32>(p, c, v, xx, yy, nrows, d, st); break;
+    case 1: launch_tpr<T, 1>(p, c, v, o, xx, yy, nrows, d, st); break;
+    case 2: launch_tpr<T, 2>(p, c, v, o, xx, yy, nrows, d, st); break;
+    case 4: launch_tpr<T, 4>(p, c, v, o, xx, yy, nrows, d, st); break;
+    case 8: launch_tpr<T, 8>(p, c, v, o, xx, yy, nrows, d, st); break;
+    case 16: launch_tpr<T, 16>(p, c, v, o, xx, yy, nrows, d, st); break;
+    case 32: launch_tpr<T, 32>(p, c, v, o, xx, yy, nrows, d, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -131,16 +183,32 @@ int gravomg_sliced_spmv_f32(const void* slice_ptr, const void* col,
                             const void* val, const void* x, void* y,
                             int64_t nrows, int64_t d, int64_t tpr,
                             void* stream) {
-  return gravomg::launch_sliced_spmv<float>(slice_ptr, col, val, x, y, nrows,
-                                            d, tpr, stream);
+  return gravomg::launch_sliced_spmv<float>(slice_ptr, col, val, nullptr, x, y,
+                                            nrows, d, tpr, stream);
 }
 
 int gravomg_sliced_spmv_f64(const void* slice_ptr, const void* col,
                             const void* val, const void* x, void* y,
                             int64_t nrows, int64_t d, int64_t tpr,
                             void* stream) {
-  return gravomg::launch_sliced_spmv<double>(slice_ptr, col, val, x, y, nrows,
-                                             d, tpr, stream);
+  return gravomg::launch_sliced_spmv<double>(slice_ptr, col, val, nullptr, x,
+                                             y, nrows, d, tpr, stream);
+}
+
+int gravomg_halo_spmv_f32(const void* slice_ptr, const void* col,
+                          const void* val, const void* out_row,
+                          const void* halo, void* y, int64_t nrows, int64_t d,
+                          int64_t tpr, void* stream) {
+  return gravomg::launch_sliced_spmv<float>(slice_ptr, col, val, out_row, halo,
+                                            y, nrows, d, tpr, stream);
+}
+
+int gravomg_halo_spmv_f64(const void* slice_ptr, const void* col,
+                          const void* val, const void* out_row,
+                          const void* halo, void* y, int64_t nrows, int64_t d,
+                          int64_t tpr, void* stream) {
+  return gravomg::launch_sliced_spmv<double>(slice_ptr, col, val, out_row,
+                                             halo, y, nrows, d, tpr, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // Shared launch constants for the SpMV kernels (shuffle_spmv.cu,
-// diag_spmv.cu, sliced_spmv.cu, sliced_diag_spmv.cu): blocks of kThreads
-// threads, each thread accumulating up to kCols right-hand-side columns;
-// wider right-hand sides are split over gridDim.y.  shuffle_spmv,
-// diag_spmv and sliced_diag_spmv run one thread per output row;
-// sliced_spmv one or more (its TPR).
+// diag_spmv.cu, sliced_spmv.cu with its halo_spmv kernel,
+// sliced_diag_spmv.cu): blocks of kThreads threads, each thread
+// accumulating up to kCols right-hand-side columns; wider right-hand sides
+// are split over gridDim.y.  shuffle_spmv, diag_spmv and sliced_diag_spmv
+// run one thread per output row; sliced_spmv and halo_spmv one or more
+// (their TPR).
 #pragma once
 
 #include <cstdint>

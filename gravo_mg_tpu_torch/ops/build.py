@@ -29,7 +29,10 @@ _SPMV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
 _DIAG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
 _SLICED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 _SLICED_DIAG_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+_HALO_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 _SIGNATURES = {
+    "gravomg_halo_spmv_f32": _HALO_ARGS,
+    "gravomg_halo_spmv_f64": _HALO_ARGS,
     "gravomg_sliced_diag_spmv_f32": _SLICED_DIAG_ARGS,
     "gravomg_sliced_diag_spmv_f64": _SLICED_DIAG_ARGS,
     "gravomg_shuffle_spmv_f32": _SPMV_ARGS,

@@ -55,29 +55,29 @@ def sliced_spmv_plain(slice_ptr: torch.Tensor, col: torch.Tensor,
 
 def check_operands(slice_ptr: torch.Tensor, col: torch.Tensor,
                    val: torch.Tensor, x: torch.Tensor, nrows: int,
-                   tpr: int) -> int:
+                   tpr: int, name: str = "sliced_spmv") -> int:
     """Validate the kernel operands; returns the right-hand-side count d."""
     if x.ndim not in (1, 2):
-        raise ValueError(f"sliced_spmv: x must be (n,) or (n, d), got {tuple(x.shape)}")
+        raise ValueError(f"{name}: x must be (n,) or (n, d), got {tuple(x.shape)}")
     if val.dtype not in _FLOATS or x.dtype != val.dtype:
-        raise TypeError(f"sliced_spmv: val/x dtypes {val.dtype}/{x.dtype}; "
+        raise TypeError(f"{name}: val/x dtypes {val.dtype}/{x.dtype}; "
                         "need equal f32 or f64")
     if slice_ptr.dtype != torch.int64 or col.dtype != torch.int32:
-        raise TypeError(f"sliced_spmv: slice_ptr must be int64 and col int32, "
+        raise TypeError(f"{name}: slice_ptr must be int64 and col int32, "
                         f"got {slice_ptr.dtype}/{col.dtype}")
     if col.ndim != 1 or col.shape != val.shape:
-        raise ValueError(f"sliced_spmv: col/val must be (E,), got "
+        raise ValueError(f"{name}: col/val must be (E,), got "
                          f"{tuple(col.shape)}/{tuple(val.shape)}")
     if slice_ptr.shape != (-(-nrows // SLICE) + 1,):
-        raise ValueError(f"sliced_spmv: slice_ptr has {slice_ptr.numel()} "
+        raise ValueError(f"{name}: slice_ptr has {slice_ptr.numel()} "
                          f"entries for {nrows} rows")
     if tpr not in TPRS:
-        raise ValueError(f"sliced_spmv: threads per row {tpr} not in {TPRS}")
+        raise ValueError(f"{name}: threads per row {tpr} not in {TPRS}")
     for t in (slice_ptr, col, val, x):
         if t.device != x.device:
-            raise ValueError(f"sliced_spmv: operands on {t.device} and {x.device}")
+            raise ValueError(f"{name}: operands on {t.device} and {x.device}")
         if not t.is_contiguous():
-            raise ValueError("sliced_spmv: operands must be contiguous")
+            raise ValueError(f"{name}: operands must be contiguous")
     return 1 if x.ndim == 1 else x.shape[1]
 
 

@@ -5,23 +5,25 @@ operator, both transfers and the mass matrix are block-partitioned over
 ``D`` partitions (:class:`SolverMesh`); each rank holds
 ``D / world_size`` consecutive ones.
 
-* Host partitioner (once per context, :func:`_build_dist_op`): for each
+* Host partitioner (once per context, :func:`_halo_plan`): for each
   partition the off-partition columns it touches form its sorted **halo
-  set**; each block is split by slot into an **interior part** (columns
-  inside the partition) and a **halo part** (columns in the halo buffer),
-  both in shuffle-ELL form, and the exchange plan groups each halo set by
-  owner into ring shifts.  Given the same csr it produces the reference's
-  arrays bit for bit.
-* Device apply (:class:`PartitionedOp`): a rank's partitions share KP and
-  S, so they are stacked into ONE ShuffleEll per part, and each apply is
-  two launches of the ShuffleEll kernel whatever the number of partitions:
+  set**, and the exchange plan groups each halo set by owner into ring
+  shifts.  Given the same csr it gives the reference's plan bit for bit
+  (:func:`_build_dist_op` adds the reference's shuffle-ELL arrays, for the
+  parity tests).
+* Device apply (:class:`PartitionedOp`): each entry of a partition's rows
+  is **interior** (its column inside the partition) or **halo** (its
+  column in the halo buffer).  A rank's interior parts are stacked into
+  one block-diagonal operator in the port's own layouts (SlicedDiag or
+  SlicedEll), its halo parts into one compact SlicedEll over the boundary
+  rows; each apply is two launches whatever the number of partitions:
   post the exchange, interior SpMV (reads only local blocks), wait, halo
-  SpMV on the received buffer.
+  SpMV added into the interior's output (``ops/halo_spmv.py``).
 * Exchange: for ring shift ``s`` partition ``i`` gathers
   ``x_loc[send_idx[i]]`` and sends it to ``(i + s) % D``, which scatters it
-  to ``halo[recv_pos]`` (``jax.lax.ppermute`` semantics; padding goes to
-  the dump slot ``H``).  Between partitions of one rank the transfer is a
-  device-local gather/scatter; between ranks it is one
+  to ``halo[recv_pos]`` (``jax.lax.ppermute`` semantics; padding, which
+  names the dump slot ``H``, is dropped).  Between partitions of one rank
+  the transfer is a device-local gather/scatter; between ranks it is one
   ``dist.batch_isend_irecv`` of every rank's point-to-point transfers.
 * The cycle is the single-device one (``solver/multigrid.py``) over the
   partitioned operators; the coarsest level all-gathers its right-hand
@@ -29,28 +31,37 @@ operator, both transfers and the mass matrix are block-partitioned over
   residual check all-reduces per-column sums.
 
 The local vector of a level is this rank's partitions laid end to end,
-each padded from ``nloc`` rows to the ShuffleEll row extent ``S * 128``
-(``stride``), so operator outputs need no compaction; padded rows stay
-exactly zero.
+each padded from ``nloc`` rows to ``stride`` rows (a multiple of 1024), so
+operator outputs need no compaction; padded rows stay exactly zero.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
+from ..ops.halo_spmv import halo_spmv
 from ..solver.multigrid import (
     LevelOps,
     _full_fp32_matmul,
     cycle_step,
     deflation_alpha,
 )
-from ..sparse import ShuffleEll, ShuffleTransfer, _shuffle_layout, numpy_dtype, spmv
+from ..sparse import (
+    ShuffleTransfer,
+    _shuffle_layout,
+    numpy_dtype,
+    sliced_bytes,
+    sliced_from_scipy,
+    sliced_layout_from_scipy,
+    spmv,
+)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -59,8 +70,9 @@ def _round_up(n: int, m: int) -> int:
 
 def partition_rows(n: int, D: int) -> Tuple[int, int]:
     """Rows per partition of an ``n``-row level over ``D`` partitions
-    (128-aligned, so the interior part gathers straight from local
-    blocks) and its local stride (the ShuffleEll row extent)."""
+    (128-aligned, as the reference's) and its local stride (a multiple of
+    1024, so no 32-row slice of a stacked layout straddles two
+    partitions)."""
     nloc = _round_up(n, 128 * D) // D
     return nloc, _round_up(nloc, 8 * 128)
 
@@ -111,15 +123,34 @@ def make_solver_mesh(n_partitions: int, device="cuda") -> SolverMesh:
 
 
 @dataclasses.dataclass
+class HaloPlan:
+    """The exchange plan of one row-partitioned operator (host numpy).
+
+    ``halo_cols[d]`` is partition ``d``'s sorted halo set (the global
+    columns outside the partition that its rows touch).  ``steps`` holds
+    one ``(shift, send_idx (D, Hs), recv_pos (D, Hs))`` per ring shift with
+    traffic: partition ``d`` gathers ``x_local[send_idx[d]]`` for ``(d +
+    shift) % D``, which scatters it to ``halo[recv_pos]``; padding entries
+    name the dump slot ``halo``.
+    """
+
+    halo_cols: List[np.ndarray]
+    steps: Tuple
+    rows_local: int
+    cols_local: int
+    halo: int              # real halo entries (max over partitions)
+    halo_pad: int          # halo buffer length, multiple of 128, > halo
+
+
+@dataclasses.dataclass
 class DistOp:
-    """One row-partitioned operator as host arrays stacked over the ``D``
-    partitions (the reference's DistOp, before it is put on devices).
+    """One row-partitioned operator as the reference's host arrays stacked
+    over the ``D`` partitions (the reference's DistOp, before it is put on
+    devices): the exchange plan and the shuffle-ELL slots of each part.
 
     ``q/r/v`` are the interior slots (source blocks inside the partition),
-    ``qh/rh/vh`` the halo slots (sourcing the halo buffer).  ``steps``
-    holds one ``(shift, send_idx (D, Hs), recv_pos (D, Hs))`` per ring
-    shift with traffic: partition ``d`` gathers ``x_local[send_idx[d]]``
-    for ``(d + shift) % D``, which scatters it to ``halo[recv_pos]``.
+    ``qh/rh/vh`` the halo slots (sourcing the halo buffer); ``steps`` as in
+    :class:`HaloPlan`.
     """
 
     q: np.ndarray          # (D, KP, S) int32
@@ -131,86 +162,52 @@ class DistOp:
     steps: Tuple
     rows_local: int
     cols_local: int
-    halo: int              # real halo entries (max over partitions)
-    halo_pad: int          # halo buffer length, multiple of 128, > halo
+    halo: int
+    halo_pad: int
 
 
-def _build_dist_op(A_csr, D: int, rl: int, cl: int, dtype,
-                   local_devices: int = 0) -> DistOp:
-    """Partition a global csr operator into per-partition halo-remapped
-    shuffle-ELL blocks (host numpy, once per context).
+def _canonical(A_csr):
+    """A csr matrix with sorted indices and no duplicates (a copy only
+    where the input is not)."""
+    A = A_csr.tocsr()
+    if not A.has_canonical_format:
+        A = A.copy()
+        A.sum_duplicates()
+    return A
+
+
+def _partition_entries(A, d: int, rl: int, cl: int):
+    """Partition ``d``'s rows of canonical csr ``A``: (row within the
+    partition, global column, value, interior mask) per entry, in csr
+    order; an entry is interior when its column lies in the partition's
+    own column block."""
+    nr = A.shape[0]
+    r0, r1 = min(d * rl, nr), min((d + 1) * rl, nr)
+    ip = A.indptr
+    rows = np.repeat(np.arange(r1 - r0, dtype=np.int64), np.diff(ip[r0:r1 + 1]))
+    cols = A.indices[ip[r0]:ip[r1]].astype(np.int64)
+    local = (cols >= d * cl) & (cols < (d + 1) * cl)
+    return rows, cols, A.data[ip[r0]:ip[r1]], local
+
+
+def _halo_plan(A_csr, D: int, rl: int, cl: int, local_devices: int = 0) -> HaloPlan:
+    """The halo sets and exchange plan of a global csr operator split into
+    ``D`` row blocks of ``rl`` rows (columns in blocks of ``cl``); given
+    the same csr, the reference's plan bit for bit.
 
     ``local_devices`` (partitions per node) orders the exchange steps
-    inter-node first; 0 means one node (order by |shift|).  Values are
-    written straight in ``dtype`` (a numpy or torch dtype), which rounds
-    each entry exactly as the reference's f64-then-cast does.
+    inter-node first; 0 means one node (order by |shift|).
     """
-    if isinstance(dtype, torch.dtype):
-        dtype = numpy_dtype(dtype)
-    np_dtype = np.dtype(dtype)
     if cl % 128:
         raise ValueError("the per-partition column block must be 128-aligned")
-    A = A_csr.tocsr()
-    A.sum_duplicates()
-    nr, nc = A.shape
+    A = _canonical(A_csr)
     halo_cols: List[np.ndarray] = []
-    blocks = []
     for d in range(D):
-        r0, r1 = d * rl, min((d + 1) * rl, nr)
-        blk = A[r0:r1].tocoo() if r1 > r0 else None
-        if blk is None or blk.nnz == 0:
-            blocks.append((np.zeros(0, np.int64),) * 2 + (np.zeros(0),))
-            halo_cols.append(np.zeros(0, np.int64))
-            continue
-        rows = blk.row.astype(np.int64)
-        cols = blk.col.astype(np.int64)
-        local = (cols >= d * cl) & (cols < (d + 1) * cl)
+        _, cols, _, local = _partition_entries(A, d, rl, cl)
         halo_cols.append(np.unique(cols[~local]))
-        blocks.append((rows, cols, blk.data))
     H = max((len(h) for h in halo_cols), default=0)
     # 128-aligned, with at least one spare slot for the exchange's padding.
     H_pad = _round_up(H + 1, 128) if H else 0
-
-    layouts = []
-    kp_max, kph_max, s_uniform = 1, 0, None
-    for d in range(D):
-        rows, cols, data = blocks[d]
-        local = (cols >= d * cl) & (cols < (d + 1) * cl)
-        kp, s, q, pos = _shuffle_layout(rows[local], cols[local] - d * cl, rl, cl)
-        if s_uniform is None:
-            s_uniform = s
-        if s != s_uniform:
-            raise AssertionError("row-group count differs between partitions")
-        kp_max = max(kp_max, kp)
-        if H:
-            hmap = np.searchsorted(halo_cols[d], cols[~local])
-            kph, _, qh, posh = _shuffle_layout(rows[~local], hmap, rl, H_pad)
-            kph_max = max(kph_max, kph if len(hmap) else 0)
-        else:
-            kph, qh, posh, hmap = 0, None, None, None
-        layouts.append((kp, q, pos, cols[local] - d * cl, data[local],
-                        kph, qh, posh, hmap, data[~local]))
-    del blocks
-    kp_max = _round_up(kp_max, 4)
-    kph_max = _round_up(kph_max, 4) if kph_max else 0
-
-    S = s_uniform if s_uniform is not None else _round_up(max(-(-rl // 128), 1), 8)
-    q_all = np.zeros((D, kp_max, S), np.int32)
-    r_all = np.zeros((D, kp_max, S, 128), np.int8)   # lanes 0..127
-    v_all = np.zeros((D, kp_max, S, 128), np_dtype)
-    qh_all = np.zeros((D, kph_max, S), np.int32)
-    rh_all = np.zeros((D, kph_max, S, 128), np.int8)
-    vh_all = np.zeros((D, kph_max, S, 128), np_dtype)
-    for d, (kp, q, pos, lc, ld, kph, qh, posh, hmap, hd) in enumerate(layouts):
-        if len(pos):
-            q_all[d, :kp] = q
-            r_all[d, :kp].reshape(-1)[pos] = lc & 127
-            v_all[d, :kp].reshape(-1)[pos] = ld
-        if kph and len(posh):
-            qh_all[d, :kph] = qh
-            rh_all[d, :kph].reshape(-1)[posh] = hmap & 127
-            vh_all[d, :kph].reshape(-1)[posh] = hd
-    del layouts
 
     # Exchange plan: group each partition's sorted halo set by owner.
     send: dict = {}
@@ -237,63 +234,144 @@ def _build_dist_op(A_csr, D: int, rl: int, cl: int, dtype,
     from .multihost import order_steps_dcn_first
 
     steps = order_steps_dcn_first(steps, D, local_devices or D)
-    return DistOp(q_all, r_all, v_all, qh_all, rh_all, vh_all, tuple(steps),
+    return HaloPlan(halo_cols, tuple(steps), rl, cl, H, H_pad)
+
+
+def _build_dist_op(A_csr, D: int, rl: int, cl: int, dtype,
+                   local_devices: int = 0) -> DistOp:
+    """The reference's DistOp of a global csr operator: :func:`_halo_plan`
+    plus each partition's interior and halo parts in shuffle-ELL form
+    (host numpy).  This is the JAX package's TPU layout; no solve builds
+    it (:class:`PartitionedOp` lays the parts out from the csr itself).
+
+    Values are written straight in ``dtype`` (a numpy or torch dtype),
+    which rounds each entry exactly as the reference's f64-then-cast does.
+    """
+    if isinstance(dtype, torch.dtype):
+        dtype = numpy_dtype(dtype)
+    np_dtype = np.dtype(dtype)
+    plan = _halo_plan(A_csr, D, rl, cl, local_devices)
+    A = _canonical(A_csr)
+    H, H_pad = plan.halo, plan.halo_pad
+
+    layouts = []
+    kp_max, kph_max, s_uniform = 1, 0, None
+    for d in range(D):
+        rows, cols, data, local = _partition_entries(A, d, rl, cl)
+        kp, s, q, pos = _shuffle_layout(rows[local], cols[local] - d * cl, rl, cl)
+        if s_uniform is None:
+            s_uniform = s
+        if s != s_uniform:
+            raise AssertionError("row-group count differs between partitions")
+        kp_max = max(kp_max, kp)
+        if H:
+            hmap = np.searchsorted(plan.halo_cols[d], cols[~local])
+            kph, _, qh, posh = _shuffle_layout(rows[~local], hmap, rl, H_pad)
+            kph_max = max(kph_max, kph if len(hmap) else 0)
+        else:
+            kph, qh, posh, hmap = 0, None, None, None
+        layouts.append((kp, q, pos, cols[local] - d * cl, data[local],
+                        kph, qh, posh, hmap, data[~local]))
+    kp_max = _round_up(kp_max, 4)
+    kph_max = _round_up(kph_max, 4) if kph_max else 0
+
+    S = s_uniform if s_uniform is not None else _round_up(max(-(-rl // 128), 1), 8)
+    q_all = np.zeros((D, kp_max, S), np.int32)
+    r_all = np.zeros((D, kp_max, S, 128), np.int8)   # lanes 0..127
+    v_all = np.zeros((D, kp_max, S, 128), np_dtype)
+    qh_all = np.zeros((D, kph_max, S), np.int32)
+    rh_all = np.zeros((D, kph_max, S, 128), np.int8)
+    vh_all = np.zeros((D, kph_max, S, 128), np_dtype)
+    for d, (kp, q, pos, lc, ld, kph, qh, posh, hmap, hd) in enumerate(layouts):
+        if len(pos):
+            q_all[d, :kp] = q
+            r_all[d, :kp].reshape(-1)[pos] = lc & 127
+            v_all[d, :kp].reshape(-1)[pos] = ld
+        if kph and len(posh):
+            qh_all[d, :kph] = qh
+            rh_all[d, :kph].reshape(-1)[posh] = hmap & 127
+            vh_all[d, :kph].reshape(-1)[posh] = hd
+    return DistOp(q_all, r_all, v_all, qh_all, rh_all, vh_all, plan.steps,
                   rl, cl, H, H_pad)
 
 
-def _stack(op_q, op_r, op_v, lo, hi, block_stride, nrows, ncols, device, dtype):
-    """One ShuffleEll over partitions [lo, hi) of stacked (D, KP, S[, 128])
-    arrays: partition j's slots source blocks offset by ``j *
-    block_stride`` and fill output row groups ``j * S ...``."""
-    dl = hi - lo
-    kp, s = op_q.shape[1], op_q.shape[2]
-    q = op_q[lo:hi] + (np.arange(dl, dtype=np.int32) * block_stride)[:, None, None]
-    q = np.ascontiguousarray(q.transpose(1, 0, 2)).reshape(kp, dl * s)
-    r = np.ascontiguousarray(op_r[lo:hi].transpose(1, 0, 2, 3)).reshape(kp, dl * s, 128)
-    v = np.ascontiguousarray(op_v[lo:hi].transpose(1, 0, 2, 3)).reshape(kp, dl * s, 128)
-    return ShuffleEll(
-        torch.from_numpy(q).to(device), torch.from_numpy(r).to(device),
-        torch.from_numpy(v).to(device, dtype), nrows, ncols,
-    )
+def _csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, shape):
+    """A csr matrix of entries already in csr order (rows ascending,
+    columns ascending within a row)."""
+    indptr = np.zeros(shape[0] + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=shape[0]), out=indptr[1:])
+    return sp.csr_matrix((vals, cols, indptr), shape=shape)
 
 
 class PartitionedOp:
-    """This rank's partitions of one :class:`DistOp` on the mesh's device,
-    applied as a callable ``y = op(x)`` (``sparse.spmv`` dispatches to it).
+    """This rank's partitions of a row-partitioned operator on the mesh's
+    device, applied as a callable ``y = op(x)`` (``sparse.spmv``
+    dispatches to it).
 
     ``x`` holds the local partitions end to end with stride ``stride_in``
-    rows, ``y`` with ``stride_out`` (each the ShuffleEll row extent of its
-    level), as ``(Dl * stride,)`` or ``(Dl * stride, d)``.
+    rows, ``y`` with ``stride_out`` (multiples of 1024, so no 32-row slice
+    straddles two partitions), as ``(Dl * stride,)`` or ``(Dl * stride,
+    d)``.  Built from the global csr ``A_csr`` and its :class:`HaloPlan`:
+
+    * ``A``: the interior parts as one block-diagonal operator (partition
+      ``j``'s rows at ``j * stride_out``, its columns at ``j *
+      stride_in``), laid out by :func:`sparse.sliced_rule` at
+      ``diag_min_groups`` (the planner's rule for a level operator), or as
+      SlicedEll where that is None (the single-device choice for transfers
+      and the mass matrix);
+    * ``Ah``: the halo parts as one SlicedEll over the rows that have a
+      halo entry only, its columns into the halo buffer (partition ``j``'s
+      halo set at ``j * halo_pad``), and ``out_row`` (int32) their rows in
+      ``y``; None where no partition has a halo.
     """
 
-    def __init__(self, op: DistOp, mesh: SolverMesh, stride_in: int,
-                 stride_out: int, dtype):
+    def __init__(self, A_csr, plan: HaloPlan, mesh: SolverMesh, stride_in: int,
+                 stride_out: int, dtype, diag_min_groups: Optional[int] = None):
         D = mesh.n_partitions
         lo, hi = mesh.local_range
         dl = hi - lo
-        S = op.q.shape[2]
-        if S * 128 != stride_out or stride_in % 128:
-            raise ValueError("partition strides disagree with the layout")
-        self.halo, self.halo_pad = op.halo, op.halo_pad
-        self.kp, self.kph = op.q.shape[1], op.qh.shape[1]
-        self.shifts = [s for s, _, _ in op.steps]
-        self.halo_nnz = 0
+        rl, cl = plan.rows_local, plan.cols_local
+        if (stride_in % 1024 or stride_out % 1024 or stride_in < cl
+                or stride_out < rl):
+            raise ValueError("partition strides disagree with the plan")
+        self.halo, self.halo_pad = plan.halo, plan.halo_pad
+        self.shifts = [s for s, _, _ in plan.steps]
+        H, Hp = plan.halo, plan.halo_pad
         dev = mesh.device
-        self.A = _stack(op.q, op.r, op.v, lo, hi, stride_in // 128,
-                        dl * stride_out, dl * stride_in, dev, dtype)
+        A = _canonical(A_csr)
+        inner, outer = [], []
+        for j, g in enumerate(range(lo, hi)):
+            rows, cols, data, local = _partition_entries(A, g, rl, cl)
+            inner.append((rows[local] + j * stride_out,
+                          cols[local] - g * cl + j * stride_in, data[local]))
+            h = ~local
+            outer.append((rows[h] + j * stride_out,
+                          np.searchsorted(plan.halo_cols[g], cols[h]) + j * Hp,
+                          data[h]))
+        interior = _csr(*map(np.concatenate, zip(*inner)),
+                        (dl * stride_out, dl * stride_in))
+        if diag_min_groups is None:
+            self.A = sliced_from_scipy(interior, dtype)
+        else:
+            self.A = sliced_layout_from_scipy(interior, dtype,
+                                              min_groups=diag_min_groups)
+        self.A = self.A.to(dev)
         self.Ah = None
         self.local = None    # (src, dst): one gather/scatter for same-rank transfers
         self.sends: list = []   # (peer rank, tag)
         self.recvs: list = []   # (peer rank, tag, rows)
-        if not (op.halo_pad and self.kph):
+        self._buffers: dict = {}   # (dtype, trailing shape) -> halo buffer
+        if not Hp:
             return
-        H, Hp = op.halo, op.halo_pad
-        self.Ah = _stack(op.qh, op.rh, op.vh, lo, hi, Hp // 128,
-                         dl * stride_out, dl * Hp, dev, dtype)
-        self.halo_nnz = int(np.count_nonzero(op.vh[lo:hi]))
+        out, hcol, hval = map(np.concatenate, zip(*outer))
+        brow, row = np.unique(out, return_inverse=True)
+        self.Ah = sliced_from_scipy(_csr(row.reshape(-1), hcol, hval,
+                                         (brow.size, dl * Hp)), dtype).to(dev)
+        self.out_row = torch.from_numpy(brow.astype(np.int32)).to(dev)
+        self.halo_real = sum(len(plan.halo_cols[g]) for g in range(lo, hi))
         src_l, dst_l, send_idx, recv_pos, recv_dst = [], [], [], [], []
         recv_off = 0     # receive-buffer rows taken so far
-        for t, (s, si, rp) in enumerate(op.steps):
+        for t, (s, si, rp) in enumerate(plan.steps):
             hs = si.shape[1]
             for g in range(lo, hi):          # senders, ascending
                 dst = (g + s) % D
@@ -345,13 +423,22 @@ class PartitionedOp:
             off += hs
         return dist.batch_isend_irecv(ops), recvbuf
 
+    def _halo_buffer(self, x):
+        """The halo buffer for x's dtype and trailing shape, kept across
+        applies.  It is zeroed once: every apply rewrites each real halo
+        position, and the rest (each partition's tail, the dump slot) is
+        never written and is read only by padding lanes of weight 0."""
+        key = (x.dtype,) + tuple(x.shape[1:])
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = x.new_zeros((self.Ah.ncols,) + tuple(x.shape[1:]))
+            self._buffers[key] = buf
+        return buf
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.Ah is None:
             return spmv(self.A, x)
-        # Zeroed every apply: the dump slot H and the tail past it are
-        # never written, and the halo part's padding lanes read them with
-        # zero weights.
-        halo = x.new_zeros((self.Ah.ncols,) + tuple(x.shape[1:]))
+        halo = self._halo_buffer(x)
         work, recvbuf = self._post(x)
         if self.local is not None:
             src, dst = self.local
@@ -363,15 +450,29 @@ class PartitionedOp:
             if self.recv_sel is not None:
                 sel, dst = self.recv_sel
                 halo.index_copy_(0, dst, recvbuf.index_select(0, sel))
-        return y + spmv(self.Ah, halo)
+        Ah = self.Ah
+        return halo_spmv(Ah.slice_ptr, Ah.col, Ah.val, self.out_row, halo, y, Ah.tpr)
 
     def info(self) -> dict:
-        """Halo size, shifts, interior KP and halo KPH of this operator,
-        and the halo part's real entries against its slot lanes."""
-        lanes = self.Ah.v.numel() if self.Ah is not None else 0
-        return {"halo": self.halo, "halo_pad": self.halo_pad,
-                "shifts": self.shifts, "kp": self.kp, "kph": self.kph,
-                "halo_nnz": self.halo_nnz, "halo_lanes": lanes}
+        """Halo size and shifts; the interior's layout, stored entries and
+        bytes per apply at d = 1 (``info()["bytes"]`` of its layout); the
+        halo part's rows, nonzeros, stored entries and bytes per apply at
+        d = 1 (a column and a value per stored entry, the slice offsets,
+        ``out_row``, y read and written at its rows, and this rank's real
+        halo positions once)."""
+        inner = self.A.info()
+        out = {"halo": self.halo, "halo_pad": self.halo_pad, "shifts": self.shifts,
+               "interior": type(self.A).__name__,
+               "interior_entries": inner["entries"], "interior_bytes": inner["bytes"],
+               "halo_rows": 0, "halo_nnz": 0, "halo_entries": 0, "halo_bytes": 0}
+        if self.Ah is not None:
+            item = self.Ah.val.element_size()
+            rows = self.Ah.nrows
+            out.update(halo_rows=rows, halo_nnz=self.Ah.nnz,
+                       halo_entries=int(self.Ah.col.numel()),
+                       halo_bytes=sliced_bytes(self.Ah.slice_ptr.cpu().numpy(), item)
+                       + rows * (4 + 2 * item) + self.halo_real * item)
+        return out
 
 
 class HaloContext:
@@ -398,15 +499,15 @@ class HaloContext:
         self.stride = [partition_rows(n, D)[1] for n in sizes]
         ld = mesh.partitions_per_node if mesh.distributed else 0
 
-        def part_op(A, k_rows, k_cols):
-            op = _build_dist_op(A, D, self.nloc[k_rows], self.nloc[k_cols],
-                                self.dtype, ld)
-            return PartitionedOp(op, mesh, self.stride[k_cols],
-                                 self.stride[k_rows], self.dtype)
+        def part_op(A, k_rows, k_cols, diag_min_groups=None):
+            plan = _halo_plan(A, D, self.nloc[k_rows], self.nloc[k_cols], ld)
+            return PartitionedOp(A, plan, mesh, self.stride[k_cols],
+                                 self.stride[k_rows], self.dtype, diag_min_groups)
 
         levels = []
         for k in range(self.cfg.num_levels):
-            A = part_op(chain[k], k, k)
+            # level interiors by the planner's rule; transfers and M SlicedEll
+            A = part_op(chain[k], k, k, ctx.diag_min_groups)
             U = part_op(ctx.U_csr[k], k, k + 1)
             UT = part_op(ctx.U_csr[k].T.tocsr(), k + 1, k)
             # lam in f64, as the reference's halo path passes it
@@ -549,7 +650,8 @@ class HaloContext:
         return y, iters, res
 
     def plan_info(self) -> List[dict]:
-        """Per level: nloc, and the A / U / U^T halo sizes, shifts, KP, KPH."""
+        """Per level: nloc, and the A / U / U^T :meth:`PartitionedOp.info`
+        (halo sizes, shifts, layouts, stored entries, bytes per apply)."""
         return [
             {"nloc": self.nloc[k], "A": lvl.A.info(), "U": lvl.U.U.info(),
              "UT": lvl.U.UT.info()}

@@ -70,7 +70,7 @@ def direct_solve(lhs_csr, rhs: np.ndarray, timing: Optional[dict] = None):
 
 def cg_operator(lhs_csr, dtype=torch.float32):
     """The CG operator: SlicedDiag or SlicedEll, whichever streams fewer
-    bytes per apply (the planner's rule, ``sparse.smaller_sliced_diag``),
+    bytes per apply (the planner's rule, ``sparse.sliced_rule``),
     or transposed ELL where the sliced layout would store beyond
     ``max(PAD_FACTOR nnz, PAD_FLOOR)`` entries."""
     cap = max(PAD_FACTOR * lhs_csr.nnz, PAD_FLOOR)

@@ -37,13 +37,11 @@ from ..sparse import (
     SlicedDiag,
     SlicedEll,
     numpy_dtype,
-    pick_tpr,
     resolve_device,
     sliced_from_scipy,
     sliced_plan_arrays,
-    smaller_sliced_diag,
+    sliced_rule,
     spmv,
-    widest_slice,
 )
 from .residual import residual_denominator, residual_numerator
 from .smoothers import chebyshev, jacobi
@@ -407,20 +405,19 @@ class MultigridSolveContext:
         Every level gets the SlicedEll layout (``"sliced"``, extra = threads
         per row), except that a level with >= ``diag_min_groups`` row groups
         of 128 gets the SlicedDiag layout derived from it (``"sdiag"``,
-        extra = widest slice) where one apply then streams fewer bytes.
-        Layouts storing beyond max(8 nnz, 2^24) entries fall back to
-        transposed ELL (``("ell",)``).
+        extra = widest slice) where one apply then streams fewer bytes
+        (:func:`sparse.sliced_rule`).  Layouts storing beyond max(8 nnz,
+        2^24) entries fall back to transposed ELL (``("ell",)``).
         """
         n = idx.shape[1]
         slice_ptr, col, src = sliced_plan_arrays(idx, mask, n)
         if int(slice_ptr[-1]) > max(8 * int(np.asarray(mask).sum()), 1 << 24):
             return ("ell",)
-        if -(-n // 128) >= self.diag_min_groups:
-            runs = smaller_sliced_diag(slice_ptr, col, src != idx.size, n,
-                                       numpy_dtype(self.dtype).itemsize)
-            if runs is not None:
-                return ("sdiag", (slice_ptr,) + runs, src, widest_slice(slice_ptr))
-        return ("sliced", (slice_ptr, col), src, pick_tpr(slice_ptr, n))
+        tag, runs, extra = sliced_rule(slice_ptr, col, src != idx.size, (n, n),
+                                       numpy_dtype(self.dtype).itemsize,
+                                       self.diag_min_groups)
+        arrays = (slice_ptr,) + runs if tag == "sdiag" else (slice_ptr, col)
+        return (tag, arrays, src, extra)
 
     def _level_tensors(self, k, pattern, A):
         """Device tensors of level k's operator: its pattern arrays,

@@ -15,8 +15,9 @@ dataclasses of torch tensors with a ``.to(device)``:
   a large level operator (and of CG's operator) where it streams fewer
   bytes than SlicedEll; applied by ``ops/sliced_diag_spmv.py``;
 * :class:`ShuffleEll` — per (slot, 128-row group) one source block ``q``
-  plus a per-row lane ``r`` (the JAX package's TPU layout, kept for the
-  halo path, ``parallel/halo.py``); applied by ``ops/shuffle_spmv.py``;
+  plus a per-row lane ``r`` (the JAX package's TPU layout, carried over
+  by ``convert.py``; no solve builds it); applied by
+  ``ops/shuffle_spmv.py``;
 * :class:`DiagEll` — the source block is an arithmetic run within tiles
   of ``tg`` groups (``start`` table; the JAX package's TPU layout, carried
   over by ``convert.py``); applied by ``ops/diag_spmv.py``;
@@ -178,15 +179,19 @@ class SlicedEll:
 
     def info(self) -> dict:
         """Rows, slices, stored entries, nonzeros, padding factor
-        (entries / nnz), widest slice and threads per row."""
-        widths = torch.diff(self.slice_ptr.cpu()) // SLICE
+        (entries / nnz), widest slice, threads per row and the bytes one
+        apply streams at d = 1 (:func:`sliced_bytes` plus x and y)."""
+        ptr = self.slice_ptr.cpu()
+        widths = torch.diff(ptr) // SLICE
         entries = int(self.col.numel())
+        item = self.val.element_size()
         return {
             "rows": self.nrows, "slices": int(widths.numel()),
             "entries": entries, "nnz": self.nnz,
             "padding": entries / max(self.nnz, 1),
             "max_width": int(widths.max()) if widths.numel() else 0,
             "threads_per_row": self.tpr,
+            "bytes": sliced_bytes(ptr.numpy(), item) + (self.nrows + self.ncols) * item,
         }
 
 
@@ -388,7 +393,7 @@ def sliced_diag_bytes(slice_ptr: np.ndarray, wide_ptr: np.ndarray,
 
 def smaller_sliced_diag(slice_ptr: np.ndarray, col: np.ndarray,
                         real: np.ndarray, ncols: int, itemsize: int):
-    """The layout choice of the planner and of CG's operator: the
+    """The byte half of :func:`sliced_rule`: the
     SlicedDiag index arrays of a SlicedEll layout (see
     :func:`sliced_diag_arrays`) where one apply then streams fewer bytes
     than through SlicedEll (:func:`sliced_diag_bytes` against
@@ -405,6 +410,21 @@ def widest_slice(slice_ptr: np.ndarray) -> int:
     return int((np.diff(np.asarray(slice_ptr)) // SLICE).max(initial=0))
 
 
+def sliced_rule(slice_ptr: np.ndarray, col: np.ndarray, real: np.ndarray,
+                shape, itemsize: int, min_groups: int = 0):
+    """The layout rule of the planner, of CG's operator and of the halo
+    path's level interiors: SlicedDiag where the operator has at least
+    ``min_groups`` row groups of 128 and one apply then streams fewer bytes
+    (:func:`smaller_sliced_diag`), else SlicedEll.  Returns ``("sdiag",
+    runs, widest slice)`` or ``("sliced", None, threads per row)``."""
+    nrows, ncols = shape
+    if -(-nrows // 128) >= min_groups:
+        runs = smaller_sliced_diag(slice_ptr, col, real, ncols, itemsize)
+        if runs is not None:
+            return "sdiag", runs, widest_slice(slice_ptr)
+    return "sliced", None, pick_tpr(slice_ptr, nrows)
+
+
 def _sliced_diag(slice_ptr, runs, val, nrows, ncols, nnz) -> SlicedDiag:
     return SlicedDiag(_tensor(slice_ptr), *map(_tensor, runs[:2]), _tensor(val),
                       *map(_tensor, runs[2:]), nrows, ncols, nnz,
@@ -419,19 +439,22 @@ def sliced_diag_from_scipy(A, dtype=torch.float32) -> SlicedDiag:
     return _sliced_diag(slice_ptr, runs, val, *A.shape, int(A.nnz))
 
 
-def sliced_layout_from_scipy(A, dtype=torch.float32, size_cap: int | None = None):
-    """Any scipy sparse matrix as SlicedDiag or SlicedEll, whichever
-    streams fewer bytes per apply (:func:`smaller_sliced_diag`); None where
-    the layout would store more than ``size_cap`` entries."""
+def sliced_layout_from_scipy(A, dtype=torch.float32, size_cap: int | None = None,
+                             min_groups: int = 0):
+    """Any scipy sparse matrix as SlicedDiag or SlicedEll by
+    :func:`sliced_rule` (SlicedDiag where it has at least ``min_groups``
+    row groups and streams fewer bytes per apply); None where the layout
+    would store more than ``size_cap`` entries."""
     got = _sliced_entries(A, dtype, size_cap)
     if got is None:
         return None
     A, slice_ptr, col, val, real = got
     nr, nc = A.shape
-    runs = smaller_sliced_diag(slice_ptr, col, real, nc, val.dtype.itemsize)
-    if runs is None:
+    tag, runs, extra = sliced_rule(slice_ptr, col, real, A.shape,
+                                   val.dtype.itemsize, min_groups)
+    if tag == "sliced":
         return SlicedEll(_tensor(slice_ptr), _tensor(col), _tensor(val), nr, nc,
-                         int(A.nnz), pick_tpr(slice_ptr, nr))
+                         int(A.nnz), extra)
     return _sliced_diag(slice_ptr, runs, val, nr, nc, int(A.nnz))
 
 
@@ -626,7 +649,8 @@ def diag_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
 class ShuffleTransfer:
     """Grid-transfer pair: U (prolong) and U^T (restrict), both
     gather-formulated SpMVs applied through :func:`spmv`, so any layout
-    works (SlicedEll on a single device, ShuffleEll on the halo path)."""
+    works (SlicedEll on a single device, a row-partitioned callable on the
+    halo path)."""
 
     U: object   # SlicedEll | ShuffleEll | callable
     UT: object

@@ -8,10 +8,10 @@ so on a GPU machine without JAX it runs as
 
 Tolerances: relative to the largest output entry, 1e-5 in f32 and 1e-12
 in f64 (the kernels sum slots in their own order, the plain versions in
-torch's reduction order).  Single-device solves go through sliced_spmv
-(and sliced_diag_spmv where a level past the diagonal-run gate is
-SlicedDiag), the halo path through shuffle_spmv; diag_spmv runs on the
-JAX package's DiagEll layout only.
+torch's reduction order).  Solves go through sliced_spmv (and
+sliced_diag_spmv where a level past the diagonal-run gate is SlicedDiag),
+the halo path's boundary rows through halo_spmv; shuffle_spmv and
+diag_spmv run on the JAX package's layouts only.
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ import torch
 
 from gravo_mg_tpu_torch import MultigridSolver, sparse
 from gravo_mg_tpu_torch.ops import diag_spmv as dmod
+from gravo_mg_tpu_torch.ops import halo_spmv as hmod
 from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
 from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
 from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
@@ -270,10 +271,23 @@ def test_wrappers_validate_operands(cuda):
         sdmod.sliced_diag_spmv(*args[:5], op.wide_col.cpu(), x, op.nrows, op.wmax)
     with pytest.raises(RuntimeError):       # a slice too wide for a stage
         sdmod.sliced_diag_spmv(*args, x, op.nrows, 1 << 12, "staged")
+    h = sparse.sliced_from_scipy(_sliced_matrix(200, 77, 500, None, 9)).to(cuda)
+    out_row = torch.arange(200, dtype=torch.int32, device=cuda)
+    hb, y = torch.zeros(77, device=cuda), torch.zeros(300, device=cuda)
+    hmod.halo_spmv(h.slice_ptr, h.col, h.val, out_row, hb, y)
+    with pytest.raises(TypeError):
+        hmod.halo_spmv(h.slice_ptr, h.col, h.val, out_row.long(), hb, y)
+    with pytest.raises(ValueError):
+        hmod.halo_spmv(h.slice_ptr, h.col, h.val, out_row, hb, y[:, None])
+    with pytest.raises(TypeError):
+        hmod.halo_spmv(h.slice_ptr, h.col, h.val, out_row, hb, y.double())
+    with pytest.raises(ValueError):
+        hmod.halo_spmv(h.slice_ptr, h.col, h.val, out_row[:100], hb, y)   # slices
 
 
 def _reset_launches():
     smod.launches = dmod.launches = slmod.launches = sdmod.launches = 0
+    hmod.launches = 0
 
 
 @pytest.mark.cuda
@@ -392,7 +406,8 @@ def halo_torus():
 def test_halo_solve_on_cuda_matches_single_device(cuda, halo_torus, D, dtype, d):
     """D virtual partitions on the card against the single-device solve on
     the card: the same cycles (+-1), solutions within 1e-4 (f32) or 1e-9
-    (f64) of max|x|, and only the ShuffleEll kernel in the halo path."""
+    (f64) of max|x|, through the sliced kernels (the stacked finest
+    interior SlicedDiag) and halo_spmv, and never shuffle_spmv."""
     from gravo_mg_tpu_torch.parallel.halo import HaloContext, make_solver_mesh
 
     V, M, neigh, lhs = halo_torus
@@ -404,10 +419,11 @@ def test_halo_solve_on_cuda_matches_single_device(cuda, halo_torus, D, dtype, d)
     ctx = solver._context(lhs)
     x1, it1, _, _ = ctx.solve(rhs, tol=tol, max_iter=50)
     hctx = HaloContext(ctx, make_solver_mesh(D, cuda))
+    assert isinstance(hctx.levels[0].A.A, sparse.SlicedDiag)
     _reset_launches()
     x2, it2, res = hctx.solve(rhs, tol=tol, max_iter=50)
-    assert smod.launches > 0 and dmod.launches == 0 and slmod.launches == 0
-    assert sdmod.launches == 0
+    assert sdmod.launches > 0 and slmod.launches > 0 and hmod.launches > 0
+    assert smod.launches == 0 and dmod.launches == 0
     assert res <= tol and abs(it1 - it2) <= 1
     rel = 1e-4 if dtype == torch.float32 else 1e-9
     assert np.abs(x1 - x2).max() <= rel * np.abs(x1).max()
@@ -416,24 +432,67 @@ def test_halo_solve_on_cuda_matches_single_device(cuda, halo_torus, D, dtype, d)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_halo_stacked_apply_on_cuda_matches_plain(cuda, halo_torus, dtype):
-    """The stacked interior and halo ShuffleEll kernels (one launch each
-    for all four partitions) against the same apply through the plain
-    versions on the CPU (tests/test_torch_halo.py holds the stacked apply
-    equal to the per-partition applies)."""
+@pytest.mark.parametrize("which", ["A0", "M"])
+def test_halo_stacked_apply_on_cuda_matches_plain(cuda, halo_torus, dtype, which):
+    """The stacked apply (one interior launch, one halo_spmv launch for all
+    four partitions) on the card against the same apply through the plain
+    versions on the CPU (tests/test_torch_halo.py holds the plain apply
+    equal to the per-partition applies of the reference layout)."""
     from gravo_mg_tpu_torch.parallel import halo
 
     V, M, neigh, lhs = halo_torus
+    A = lhs if which == "A0" else M.tocsr()
     D = 4
-    nl = -(-lhs.shape[0] // (128 * D)) * 128
-    P = -(-nl // 1024) * 1024
-    op = halo._build_dist_op(lhs, D, nl, nl, dtype)
-    stacked = halo.PartitionedOp(op, halo.make_solver_mesh(D, cuda), P, P, dtype)
+    nl, P = halo.partition_rows(A.shape[0], D)
+    plan = halo._halo_plan(A, D, nl, nl)
+    stacked = halo.PartitionedOp(A, plan, halo.make_solver_mesh(D, cuda), P, P, dtype, 16)
     x = _x(D * P, 3, dtype, 11, cuda)
     x.view(D, P, 3)[:, nl:] = 0
-    smod.launches = 0
+    _reset_launches()
     y = stacked(x)
-    assert smod.launches == 2
-    host = halo.PartitionedOp(op, halo.make_solver_mesh(D, "cpu"), P, P, dtype)
+    torch.cuda.synchronize()
+    assert slmod.launches + sdmod.launches == 1 and smod.launches == 0
+    assert hmod.launches == (stacked.Ah is not None)
+    host = halo.PartitionedOp(A, plan, halo.make_solver_mesh(D, "cpu"), P, P, dtype, 16)
     ref = host(x.cpu())
     _close(y.cpu(), ref, dtype)
+
+
+HALO_PARTS = [
+    (0, 50, 300, 0),          # no boundary rows: nothing launches
+    (37, 90, 500, 1),
+    (3000, 9000, 20000, 2),
+    (8192, 9000, 1 << 20, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tpr", slmod.TPRS)
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,nh,n,seed", HALO_PARTS)
+def test_halo_kernel_matches_plain(cuda, nb, nh, n, seed, dtype, d, tpr):
+    """halo_spmv against halo_spmv_plain on random compact parts (rows of
+    0-6 entries, unique out_row) added into a y that already holds
+    interior values, every threads-per-row variant; an empty part
+    launches nothing."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 7, nb)
+    rows = np.repeat(np.arange(nb), deg)
+    A = sp.csr_matrix((rng.standard_normal(rows.size),
+                       (rows, rng.integers(0, nh, rows.size))), shape=(nb, nh))
+    op = sparse.sliced_from_scipy(A, dtype=dtype).to(cuda)
+    out_row = torch.from_numpy(
+        np.sort(rng.choice(n, nb, replace=False)).astype(np.int32)).to(cuda)
+    hb = _x(nh, d, dtype, seed, cuda)
+    y0 = _x(n, d, dtype, seed + 1, cuda)
+    before = hmod.launches
+    y = hmod.halo_spmv(op.slice_ptr, op.col, op.val, out_row, hb, y0.clone(), tpr)
+    torch.cuda.synchronize()
+    assert hmod.launches == before + (nb > 0)
+    ref = hmod.halo_spmv_plain(op.slice_ptr, op.col, op.val, out_row, hb, y0.clone())
+    assert y.shape == ref.shape and y.dtype == dtype
+    _close(y, ref, dtype)
+    host = y0.double().cpu().numpy().copy()
+    host[out_row.long().cpu().numpy()] += A @ hb.double().cpu().numpy()
+    _close(y, torch.from_numpy(host).to(cuda, dtype), dtype)

@@ -9,7 +9,8 @@ partitions (``make_solver_mesh(D, "cpu")``, the plain SpMVs), plus parity:
 * the port's ``HaloContext`` and the JAX one (8 virtual CPU devices) on
   the same hierarchy and rhs take the same cycles, and their f32
   solutions agree within 1e-4 relative;
-* the stacked one-launch apply equals the per-partition applies.
+* the stacked sliced apply (interior and compact halo part) equals the
+  per-partition ShuffleEll applies of the reference's arrays.
 
 Tolerances are written at each assert.
 """
@@ -134,40 +135,54 @@ def test_halo_after_update_lhs(setup):
 
 
 def test_halo_interior_split_exact(setup):
-    """The interior/halo split reassembles each level operator exactly
-    (bit-level f32 values), and the interior part only sources local
-    blocks (the overlap contract)."""
+    """The interior/halo split of every level operator on the solve path
+    (``PartitionedOp``'s stacked interior and compact halo part)
+    reassembles the operator exactly (bit-level f32 values), and the
+    interior part only sources its own partition's columns (the overlap
+    contract)."""
+    from gravo_mg_tpu_torch.ops.sliced_diag_spmv import sliced_diag_columns
+    from gravo_mg_tpu_torch.ops.sliced_spmv import entry_rows
+    from gravo_mg_tpu_torch.sparse import SlicedDiag
+
     _, _, ctx = _context(setup)
     D = 8
     hctx = HaloContext(ctx, make_solver_mesh(D, "cpu"))
     for k in range(ctx.cfg.num_levels):
         A_ref = ctx.chain_csr[k].tocsr()
-        nl = hctx.nloc[k]
-        op = halo._build_dist_op(A_ref, D, nl, nl, np.float32)
-        assert int(op.q.max()) < nl // 128
-        rows_all, cols_all, vals_all = [], [], []
-        kp, s = op.q.shape[1], op.q.shape[2]
-        rows = np.tile(np.arange(s * 128).reshape(1, s, 128), (kp, 1, 1)).reshape(-1)
-        for d in range(D):
-            cols = (op.q[d][:, :, None] * 128 + op.r[d]).reshape(-1)
-            vals = op.v[d].reshape(-1)
-            keep = vals != 0
-            rows_all.append(rows[keep] + d * nl)
-            cols_all.append(cols[keep] + d * nl)
-            vals_all.append(vals[keep])
-        if op.halo:
-            kph = op.qh.shape[1]
-            rows_h = np.tile(np.arange(s * 128).reshape(1, s, 128),
-                             (kph, 1, 1)).reshape(-1)
+        nl, P = hctx.nloc[k], hctx.stride[k]
+        op = hctx.levels[k].A
+        Ai = op.A
+        rows = entry_rows(Ai.slice_ptr).numpy()
+        if isinstance(Ai, SlicedDiag):
+            cols = sliced_diag_columns(Ai.slice_ptr, Ai.base, Ai.delta, Ai.wide_ptr,
+                                       Ai.wide_col).numpy()
+        else:
+            cols = Ai.col.long().numpy()
+        vals = Ai.val.numpy()
+        keep = vals != 0
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        part = rows // P
+        assert np.array_equal(cols // P, part)          # own partition only
+        assert (rows % P).max() < nl and (cols % P).max() < nl
+        rows_all = [part * nl + rows % P]
+        cols_all = [part * nl + cols % P]
+        vals_all = [vals]
+        if op.Ah is not None:
+            Ah, Hp = op.Ah, op.halo_pad
+            hvals = Ah.val.numpy()
+            keep = hvals != 0
+            hrows = op.out_row.long().numpy()[entry_rows(Ah.slice_ptr).numpy()[keep]]
+            hpos, hvals = Ah.col.long().numpy()[keep], hvals[keep]
+            hcols = np.empty_like(hpos)
             for d in range(D):
                 cg = A_ref[d * nl:(d + 1) * nl].tocoo().col
                 hc = np.unique(cg[(cg < d * nl) | (cg >= (d + 1) * nl)])
-                hidx = (op.qh[d][:, :, None] * 128 + op.rh[d]).reshape(-1)
-                vals = op.vh[d].reshape(-1)
-                keep = vals != 0
-                rows_all.append(rows_h[keep] + d * nl)
-                cols_all.append(hc[hidx[keep]])
-                vals_all.append(vals[keep])
+                mine = hpos // Hp == d
+                assert np.array_equal(hrows[mine] // P, np.full(mine.sum(), d))
+                hcols[mine] = hc[hpos[mine] % Hp]
+            rows_all.append(hrows // P * nl + hrows % P)
+            cols_all.append(hcols)
+            vals_all.append(hvals)
         got = sp.coo_matrix(
             (np.concatenate(vals_all),
              (np.concatenate(rows_all), np.concatenate(cols_all))),
@@ -234,17 +249,25 @@ def test_build_dist_op_matches_reference(ref_pair, which, D):
     for (_, si, rp), (_, si2, rp2) in zip(got.steps, want.steps):
         assert np.array_equal(si, si2) and np.array_equal(rp, rp2)
 
+    # The port's sliced apply (built from the csr and its plan) against the
+    # global product and the per-partition ShuffleEll applies of the
+    # reference's f64 arrays.
     ref64 = convert.dist_op_from_reference(
         ref_halo._build_dist_op(A, D, rl, cl, np.float64))
     p_in, p_out = -(-cl // 1024) * 1024, -(-rl // 1024) * 1024
-    op = halo.PartitionedOp(ref64, make_solver_mesh(D, "cpu"), p_in, p_out,
-                            torch.float64)
+    op = halo.PartitionedOp(A, halo._halo_plan(A, D, rl, cl),
+                            make_solver_mesh(D, "cpu"), p_in, p_out, torch.float64)
     x = np.random.default_rng(1).standard_normal(A.shape[1])
+    xg = np.pad(x, (0, D * cl - x.size))
     xl = np.zeros((D, p_in))
-    xl[:, :cl] = np.pad(x, (0, D * cl - x.size)).reshape(D, cl)
-    y = op(torch.from_numpy(xl.reshape(-1))).numpy().reshape(D, p_out)[:, :rl]
+    xl[:, :cl] = xg.reshape(D, cl)
+    y = op(torch.from_numpy(xl.reshape(-1))).numpy().reshape(D, p_out)
     y_glob = A @ x
-    assert np.abs(y.reshape(-1)[: A.shape[0]] - y_glob).max() <= 1e-12 * np.abs(y_glob).max()
+    scale = np.abs(y_glob).max()
+    assert np.abs(y[:, :rl].reshape(-1)[: A.shape[0]] - y_glob).max() <= 1e-12 * scale
+    for g in range(D):
+        yi = _shuffle_partition(ref64, A, g, xg[:, None], p_out)[:, 0]
+        assert np.abs(y[g] - yi).max() <= 1e-12 * scale
 
 
 @pytest.mark.parametrize("poisson", [False, True])
@@ -269,12 +292,32 @@ def test_halo_context_matches_reference(setup, poisson):
     assert _mean_free_rel(x, x_ref) < 1e-4    # measured 1.1e-6 on Poisson (f32)
 
 
+def _shuffle_partition(op, A, g, xg, p_out):
+    """Partition g's interior + halo apply of a DistOp's ShuffleEll arrays
+    (the reference's layout) on the global ``xg (D * cl, d)``: its
+    ``(p_out, d)`` output rows."""
+    rl, cl = op.rows_local, op.cols_local
+    Ai = ShuffleEll(torch.from_numpy(op.q[g]), torch.from_numpy(op.r[g]),
+                    torch.from_numpy(op.v[g]), p_out, cl)
+    yi = spmv(Ai, torch.from_numpy(xg[g * cl:(g + 1) * cl].copy())).numpy()
+    if op.halo:
+        cols = A[g * rl:(g + 1) * rl].tocoo().col
+        hc = np.unique(cols[(cols < g * cl) | (cols >= (g + 1) * cl)])
+        hb = np.zeros((op.halo_pad, xg.shape[1]))
+        hb[: len(hc)] = xg[hc]
+        Ah = ShuffleEll(torch.from_numpy(op.qh[g]), torch.from_numpy(op.rh[g]),
+                        torch.from_numpy(op.vh[g]), p_out, op.halo_pad)
+        yi = yi + spmv(Ah, torch.from_numpy(hb)).numpy()
+    return yi
+
+
 @pytest.mark.parametrize("d", [1, 3])
 @pytest.mark.parametrize("which", ["A0", "U0T"])
 def test_stacked_apply_equals_per_partition(setup, which, d):
-    """One stacked ShuffleEll per part (2 launches for all partitions)
-    gives each partition's own interior + halo apply, and the global
-    product: f64, within 1e-12 of max|y|."""
+    """The stacked apply (one interior and one halo launch for all
+    partitions) gives each partition's own interior + halo apply of the
+    reference layout, and the global product: f64, within 1e-12 of
+    max|y|."""
     _, _, ctx = _context(setup)
     D = 4
     mesh = make_solver_mesh(D, "cpu")
@@ -287,7 +330,8 @@ def test_stacked_apply_equals_per_partition(setup, which, d):
         "U0T": (ctx.U_csr[0].T.tocsr(), nl1, nl0, P1, P0),
     }[which]
     op = halo._build_dist_op(A, D, rl, cl, np.float64)
-    stacked = halo.PartitionedOp(op, mesh, p_in, p_out, torch.float64)
+    stacked = halo.PartitionedOp(A, halo._halo_plan(A, D, rl, cl), mesh, p_in,
+                                 p_out, torch.float64)
     rng = np.random.default_rng(5)
     xg = np.zeros((D * cl, d))
     xg[: A.shape[1]] = rng.standard_normal((A.shape[1], d))
@@ -298,18 +342,7 @@ def test_stacked_apply_equals_per_partition(setup, which, d):
     y_glob = A @ xg[: A.shape[1]]
     scale = np.abs(y_glob).max()
     for g in range(D):
-        xi = torch.from_numpy(x_loc[g, :cl].copy())
-        Ai = ShuffleEll(torch.from_numpy(op.q[g]), torch.from_numpy(op.r[g]),
-                        torch.from_numpy(op.v[g]), p_out, cl)
-        yi = spmv(Ai, xi).numpy()
-        if op.halo:
-            cols = A[g * rl:(g + 1) * rl].tocoo().col
-            hc = np.unique(cols[(cols < g * cl) | (cols >= (g + 1) * cl)])
-            hb = np.zeros((op.halo_pad, d))
-            hb[: len(hc)] = xg[hc]
-            Ah = ShuffleEll(torch.from_numpy(op.qh[g]), torch.from_numpy(op.rh[g]),
-                            torch.from_numpy(op.vh[g]), p_out, op.halo_pad)
-            yi = yi + spmv(Ah, torch.from_numpy(hb)).numpy()
+        yi = _shuffle_partition(op, A, g, xg, p_out)
         assert np.abs(y[g] - yi).max() <= 1e-12 * scale
         nr = max(min(rl, A.shape[0] - g * rl), 0)   # real rows of partition g
         assert np.abs(y[g, :nr] - y_glob[g * rl:g * rl + nr]).max(initial=0) <= 1e-12 * scale
