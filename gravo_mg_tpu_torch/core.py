@@ -48,16 +48,20 @@ class MultigridSolver:
         sig06=False, normals=None, verbose=False, debug=False,
         ablation=False, ablation_num_points=3, ablation_random=False,
         smoother=Smoother.CHEBYSHEV, dtype=torch.float32, seed=0,
-        device="cuda", diag_min_groups=4096,
+        device="cuda", diag_min_groups=4096, hierarchy_engine="native",
     ):
         """Build the solver and (eagerly, like the reference ctor
         core.cpp:20-58) the multigrid hierarchy.
 
         Args mirror the reference (`core.py:8-57`) and the JAX package;
-        ``device`` selects where the solve runs and ``diag_min_groups``
+        ``device`` selects where the solve runs, ``diag_min_groups``
         the count of 128-row groups from which a level may be planned as
         SlicedDiag (where that streams fewer bytes per apply than
-        SlicedEll).
+        SlicedEll), and ``hierarchy_engine`` how the hierarchy (ours,
+        SIG06 or ablation) is built: ``"native"`` in the port's C++, or
+        ``"device"`` by Luby sampling, Bellman-Ford clustering and batched
+        weights in torch on ``device`` (the JAX package's hierarchy
+        without its native library, ``GRAVO_MG_NO_NATIVE=1``).
         """
         self.device = resolve_device(device)
         self.pos = np.asarray(pos, dtype=np.float64)
@@ -87,11 +91,13 @@ class MultigridSolver:
         self.dtype = dtype
         self.seed = int(seed)
         self.diag_min_groups = int(diag_min_groups)
+        engine = dict(engine=hierarchy_engine, device=self.device)
 
         if sig06:
             self.hierarchy = build_hierarchy_sig06(
                 self.pos, self.neigh,
-                lower_bound=self.lower_bound, verbose=self.verbose,
+                lower_bound=self.lower_bound, seed=self.seed,
+                verbose=self.verbose, **engine,
             )
         elif ablation:
             self.hierarchy = build_hierarchy_ablation(
@@ -100,6 +106,7 @@ class MultigridSolver:
                 num_points=int(ablation_num_points),
                 random_points=bool(ablation_random),
                 nested=self.nested, seed=self.seed, verbose=self.verbose,
+                **engine,
             )
         else:
             self.hierarchy = build_hierarchy(
@@ -110,6 +117,7 @@ class MultigridSolver:
                 check_voronoi=self.check_voronoi, nested=self.nested,
                 normals=self.normals,
                 seed=self.seed, verbose=self.verbose, debug=self.debug,
+                **engine,
             )
         self._hierarchy_ours = self.hierarchy
         self._hierarchy_sig21: Optional[HierarchyData] = None

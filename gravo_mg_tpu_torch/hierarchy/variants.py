@@ -13,8 +13,10 @@ same cycle machinery as the main method:
 
 As in the JAX package, SIG06 rows without a sampled 1-ring neighbor (empty
 or -1 columns in the reference, multigrid_solver.cpp:637) fall back to
-their nearest sample with weight 1.  The samplers are the native index-order
-sweeps, which take no seed.
+their nearest sample with weight 1.  Both take the main builder's
+``engine``: the native index-order sweeps (which take no seed) and native
+clustering, or Luby rounds seeded with ``seed + k`` at level k and
+Bellman-Ford clustering on ``device``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .builder import (
     _avg_edge_length,
     _coarse_graph,
     _coarse_positions,
+    engine_device,
 )
 from .cluster import cluster_labels
 from .sampling import parallel_disk_sample
@@ -49,9 +52,14 @@ def build_hierarchy_sig06(
     *,
     lower_bound: int = 1000,
     max_levels: int = 10,
+    seed: int = 0,
     verbose: bool = False,
+    engine: str = "native",
+    device="cuda",
 ) -> Hierarchy:
     """SIG06 hierarchy: MIS samples, nested points, 1-ring IDW weights."""
+    dev = engine_device(engine, device)
+    sampler = "native" if dev is None else "luby"
     pos = np.asarray(pos, dtype=np.float64)
     neigh = np.asarray(neigh, dtype=np.int32)
     timing = {"sampling": 0.0, "next_neighborhood": 0.0, "triangulation": 0.0}
@@ -65,7 +73,8 @@ def build_hierarchy_sig06(
         radius = float(np.cbrt(5.0)) * _avg_edge_length(level_pos, level_neigh)
         t0 = time.perf_counter()
         samples, _ = parallel_disk_sample(
-            level_pos, level_neigh, radius, two_ring=False
+            level_pos, level_neigh, radius, two_ring=False, seed=seed + k,
+            engine=sampler, device=dev,
         )
         timing["sampling"] += time.perf_counter() - t0
         nc = len(samples)
@@ -162,10 +171,14 @@ def build_hierarchy_ablation(
     nested: bool = False,
     seed: int = 0,
     verbose: bool = False,
+    engine: str = "native",
+    device="cuda",
 ) -> Hierarchy:
     """Ablation hierarchy: the main sampling/clustering, IDW weights over
     the ``num_points`` closest (or, with ``random_points``, seeded random)
     coarse neighbors instead of triangle selection."""
+    dev = engine_device(engine, device)
+    sampler = "native" if dev is None else "luby"
     pos = np.asarray(pos, dtype=np.float64)
     neigh = np.asarray(neigh, dtype=np.int32)
     timing = {"sampling": 0.0, "cluster": 0.0, "next_neighborhood": 0.0,
@@ -181,7 +194,8 @@ def build_hierarchy_ablation(
         radius = float(np.cbrt(ratio)) * _avg_edge_length(level_pos, level_neigh)
         t0 = time.perf_counter()
         samples, _ = parallel_disk_sample(
-            level_pos, level_neigh, radius, two_ring=True
+            level_pos, level_neigh, radius, two_ring=True, seed=seed + k,
+            engine=sampler, device=dev,
         )
         timing["sampling"] += time.perf_counter() - t0
         nc = len(samples)
@@ -192,10 +206,11 @@ def build_hierarchy_ablation(
             print(f"ablation level {k}: {dof[k]} -> {nc}")
 
         t0 = time.perf_counter()
-        labels, _ = cluster_labels(level_pos, samples, level_neigh)
+        labels, _ = cluster_labels(level_pos, samples, level_neigh,
+                                   engine=engine, device=dev)
         timing["cluster"] += time.perf_counter() - t0
         t0 = time.perf_counter()
-        coarse_neigh = _coarse_graph(labels, level_neigh, nc)
+        coarse_neigh = _coarse_graph(labels, level_neigh, nc, engine)
         timing["next_neighborhood"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         coarse_pos = _coarse_positions(

@@ -6,8 +6,10 @@ this file) are byte-identical copies of the JAX package's
 copies (``tests/test_torch_host.py`` holds them equal, so the two host
 halves cannot drift).  The library is built with g++ on first use into
 ``gravo_mg_tpu_torch/_build/`` (rebuilt when a source is newer) and never
-written next to the sources.  There is no numpy fallback: if the library
-cannot be built, the loader raises.
+written next to the sources.  The loader never falls back on its own: if
+the library cannot be built or loaded, it raises, and its message names
+the device engine (``hierarchy_engine="device"``), which builds a
+different hierarchy without this library only when the caller asks.
 """
 
 from __future__ import annotations
@@ -72,11 +74,20 @@ def get_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        if not _SO.exists() or any(
-            _SO.stat().st_mtime < s.stat().st_mtime for s in SOURCES
-        ):
-            _build()
-        lib = ctypes.CDLL(str(_SO))
+        try:
+            if not _SO.exists() or any(
+                _SO.stat().st_mtime < s.stat().st_mtime for s in SOURCES
+            ):
+                _build()
+            lib = ctypes.CDLL(str(_SO))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+            raise RuntimeError(
+                f"the native library is unavailable ({exc}); to build the "
+                "hierarchy without it, pass hierarchy_engine=\"device\" to "
+                "MultigridSolver (engine=\"device\" to the hierarchy "
+                "builders): it samples, clusters and weights in torch and "
+                "gives a different hierarchy"
+            ) from exc
         lib.unique_i64.restype = ctypes.c_int64
         lib.unique_i64.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
