@@ -35,8 +35,12 @@ phase, counted from 0; any failure exits non-zero before the last line):
    checked against a host direct solve;
 4. poisson: the 1M-vertex torus Poisson solve (1e-6 M + S, rhs M @ randn,
    seed 42, tol 1e-4, criterion 2, lower_bound 1000) through the facade
-   in mode="fused", and one warm solve under torch.profiler (kernel ms per
-   dispatched cycle by kernel, device idle share);
+   in mode="fused" (one masked cycle captured as a CUDA graph and
+   replayed) beside mode="traced" (the host loop): cold and warm solves,
+   warm fused solves at 1, 2 and 4 cycles per host read, the fused
+   iterate held bitwise equal to the traced one, and one warm solve of
+   each under torch.profiler (kernel ms per cycle run by kernel, device
+   idle share);
    halo: the same system on phase poisson's context over 4 row partitions
    (``parallel.halo.HaloContext``) held by one NCCL rank on this card
    (one-rank process group, ``file://`` rendezvous): each part's layout,
@@ -44,13 +48,14 @@ phase, counted from 0; any failure exits non-zero before the last line):
    cold and warm solves against phase poisson's solution, one warm solve
    under torch.profiler;
 5. cg: ``solver.cg_solve`` on the same torus, lhs M + 1e-3 S, rhs
-   M @ randn (seed 42), tol 1e-4, max_iter 2000;
+   M @ randn (seed 42), tol 1e-4, max_iter 2000 (its 32-iteration unit
+   replayed from a CUDA graph);
 6. minquad: MinQuadWithFixedMG on that solver (built with the 1M system,
    before phase kernels), lhs S + 1e-3 M, 5% of the vertices known,
-   criterion 2, tol 1e-4, max_iter 20;
+   criterion 2, tol 1e-4, max_iter 20, traced and fused;
 7. flow: three ConformalFlow steps on the 1M torus (tau 1e-3, tol 1e-4,
    f64: f32's residual floor on this system is above 1e-4), one solver
-   context throughout;
+   context throughout, each step's system solved traced and fused;
 8. baselines: the reference protocol's "Torus 262K" row
    (torus_mesh(724, 362, r=0.5), area-normalized, cotan S, Voronoi M,
    lhs M + 1e-3 S, rhs M @ randn, seed 0) with OURS, SIG06, ablation and
@@ -359,6 +364,9 @@ def main():
         PartitionedOp, _build_dist_op, _halo_plan, make_solver_mesh, partition_rows,
     )
     from gravo_mg_tpu_torch.solver.direct import cg_operator
+    from gravo_mg_tpu_torch.solver import direct as cg_direct
+    from gravo_mg_tpu_torch.solver import multigrid as mgmod
+    from gravo_mg_tpu_torch.solver.device_loop import StepGraph
     from gravo_mg_tpu_torch.solver.multigrid import _ell_pattern, _ell_values
     from gravo_mg_tpu_torch.sparse import (
         DiagEll, ShuffleTransfer, SlicedDiag, SlicedEll, diag_plan_arrays,
@@ -954,46 +962,109 @@ def main():
         fail("smoothing", exc)
 
     # ---- 4. the 1M Poisson solve (main path) ----------------------------------
+    # mode="fused" is the main path: one masked cycle captured as a CUDA
+    # graph on the cold solve and replayed, the stop flag read once per
+    # CYCLES_PER_READ cycles.  mode="traced" (the host loop) beside it.
     try:
         t_wall = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         counts.reset()
+        t0 = time.perf_counter()
         x = solver.solve(lhs, rhs, mode="fused")
+        cold_call = time.perf_counter() - t0
         launches = counts.read()
+        ft = dict(solver.solver_timing)
         dispatched0 = ctx.dispatched
-        cycles = int(solver.solver_timing["iterations"])
-        cycles_ms = solver.solver_timing["cycles"]
+        cycles = int(ft["iterations"])
+        cycles_ms = ft["cycles"]
         res = solver.residual(lhs, rhs, x)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        warm = []
-        for _ in range(3):
-            t0 = time.perf_counter()
+        conv_fused = [r for _, r in solver.convergence]
+        t0 = time.perf_counter()
+        x_tr = solver.solve(lhs, rhs, mode="traced")
+        traced_cold = (solver.solver_timing["cycles"], time.perf_counter() - t0)
+        conv_traced = [r for _, r in solver.convergence]
+        traced_dispatched = ctx.dispatched
+
+        def warm_solves(mode, n=3):
+            out = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                solver.solve(lhs, rhs, mode=mode)
+                t = solver.solver_timing
+                out.append((t["cycles"], time.perf_counter() - t0,
+                            ctx.dispatched, int(t.get("host_reads", 0))))
+            return out
+
+        # cycles per host read: 1, 2 and 4 in turns, the traced loop beside
+        # them; the graph is the same for every k (one capture in all)
+        default_k = mgmod.CYCLES_PER_READ
+        sweep = {}
+        for turn in range(2):
+            for k in (1, 2, 4):
+                mgmod.CYCLES_PER_READ = k
+                sweep.setdefault(k, []).extend(warm_solves("fused"))
+            sweep.setdefault("traced", []).extend(warm_solves("traced"))
+        mgmod.CYCLES_PER_READ = default_k
+        solver.solve(lhs, rhs, mode="fused")
+        captures = int(solver.solver_timing["graph_captures"])
+        with torch_trace(trace_dir, name="poisson_fused_warm_solve") as prof:
             solver.solve(lhs, rhs, mode="fused")
-            warm.append((solver.solver_timing["cycles"], time.perf_counter() - t0))
-        with torch_trace(trace_dir, name="poisson_warm_solve") as prof:
-            solver.solve(lhs, rhs, mode="fused")
-        traced_ms = solver.solver_timing["cycles"]
+        fused_traced_ms = solver.solver_timing["cycles"]
+        fused_replays = int(solver.solver_timing["graph_replays"])
         dispatched = ctx.dispatched
-        trace_msg = trace_summary(prof, "poisson_warm_solve", dispatched)
-        # A0 is SlicedDiag: 9 applies per cycle and one in the residual check
-        ok = (np.isfinite(x).all() and x.shape == rhs.shape and res <= 1e-4
-              and cycles <= 6 and launches["sliced_spmv"] > 0
-              and launches["sliced_diag_spmv"] == 10 * dispatched0
-              and launches["diag_spmv"] == 0 and launches["shuffle_spmv"] == 0)
+        fused_msg = trace_summary(prof, "poisson_fused_warm_solve", dispatched)
+        with torch_trace(trace_dir, name="poisson_traced_warm_solve") as prof:
+            solver.solve(lhs, rhs, mode="traced")
+        host_traced_ms = solver.solver_timing["cycles"]
+        host_dispatched = ctx.dispatched
+        host_msg = trace_summary(prof, "poisson_traced_warm_solve", host_dispatched)
+        reads = int(ft["host_reads"])
+        checks = {
+            "finite, shape": bool(np.isfinite(x).all()) and x.shape == rhs.shape,
+            "residual <= 1e-4": res <= 1e-4,
+            "5 cycles": cycles == 5,
+            "fused x == traced x (bitwise)": np.array_equal(x, x_tr),
+            "fused trace == traced trace": conv_fused == conv_traced,
+            "one capture over all fused solves": captures == 1,
+            "host reads <= ceil(cycles run / k)":
+                reads <= -(-dispatched0 // default_k),
+            "sliced_diag_spmv == 10 x cycles run":
+                launches["sliced_diag_spmv"] == 10 * dispatched0,
+            "sliced_spmv launched": launches["sliced_spmv"] > 0,
+            "no diag_spmv, shuffle_spmv":
+                launches["diag_spmv"] == 0 and launches["shuffle_spmv"] == 0,
+        }
+        ok = all(checks.values())
         log(f"phase poisson: dof={solver.hierarchy.dof} {layouts(ctx)} "
             f"cycles {cycles} residual(host f64) {res:.3e} "
-            f"trace {[f'{c[1]:.3e}' for c in solver.convergence]}")
-        log(f"phase poisson: hierarchy {t_hier:.2f} s setup {t_setup:.2f} s "
-            f"cycles {cycles_ms:.2f} ms ({cycles_ms / max(cycles, 1):.3f} ms/cycle) "
-            f"warm solves' cycles " + ", ".join(
-                f"{w:.2f} ms ({w / max(cycles, 1):.3f} ms/cycle, call {c:.3f} s)"
-                for w, c in warm)
-            + f"; peak device memory {peak:.0f} MiB, {peak - mq_mib:.0f} MiB without "
-            f"MinQuad's context ({mq_mib:.0f} MiB, resident since poisson-setup)")
-        log(f"phase poisson: traced warm solve {traced_ms:.2f} ms, {dispatched} "
-            f"cycles dispatched for {cycles}: {trace_msg}")
+            f"trace {[f'{r:.3e}' for r in conv_fused]}")
+        log(f"phase poisson: hierarchy {t_hier:.2f} s setup {t_setup:.2f} s; fused cold "
+            f"solve: cycles {cycles_ms:.2f} ms (call {cold_call:.3f} s), {dispatched0} "
+            f"cycles run, {reads} host reads at k = {default_k}, capture "
+            f"{ft['graph_capture_ms']:.1f} ms, graph pool {ft['graph_pool_mib']:.1f} MiB "
+            f"(d=1 f32); traced cold solve {traced_cold[0]:.2f} ms (call "
+            f"{traced_cold[1]:.3f} s, {traced_dispatched} dispatched); peak device "
+            f"memory {peak:.0f} MiB, {peak - mq_mib:.0f} MiB without MinQuad's context "
+            f"({mq_mib:.0f} MiB, resident since poisson-setup)")
+        for k, runs in sweep.items():
+            ms = sorted(w for w, *_ in runs)
+            name = f"fused k={k}" if k != "traced" else "traced"
+            log(f"phase poisson: warm {name}: cycles ms " + ", ".join(
+                f"{w:.3f}" for w, *_ in runs) + f" (median {ms[len(ms) // 2]:.3f}, "
+                f"{ms[len(ms) // 2] / max(cycles, 1):.3f} ms/cycle); calls s "
+                + ", ".join(f"{c:.4f}" for _, c, *_ in runs)
+                + f"; cycles run {[r[2] for r in runs]}"
+                + (f" host reads {[r[3] for r in runs]}" if k != "traced" else ""))
+        log(f"phase poisson: fused warm solve under the profiler {fused_traced_ms:.2f} ms, "
+            f"{dispatched} cycles run for {cycles} (graph replays {fused_replays}): "
+            f"{fused_msg}")
+        log(f"phase poisson: traced warm solve under the profiler {host_traced_ms:.2f} ms, "
+            f"{host_dispatched} cycles dispatched for {cycles}: {host_msg}")
         log(f"phase poisson: launches {launches} (sliced_diag_spmv expected 10 per "
-            f"dispatched cycle, {dispatched0} dispatched) {'ok' if ok else 'FAIL'}")
+            f"cycle run, {dispatched0} run) checks "
+            f"{[k for k, v in checks.items() if not v] or 'all passed'} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("1M Poisson solve failed its checks")
         x_single, cycles_single = x, cycles
@@ -1108,14 +1179,45 @@ def main():
         launched = counts.read()
         t = dict(solver.solver_timing)
         res = rel_residual_f64(lhs_cg, x.astype(np.float64), rhs_cg)
-        solver.cg_solve(lhs_cg, rhs_cg, max_iter=2000)
-        warm_ms = solver.solver_timing["cg_ms"]
+        # warm calls: the facade keeps the captured unit, so every unit is a
+        # replay; beside them the loop with its units run eagerly (the loop
+        # before the graph), in the same process
+        warm, eager = [], []
+        for _ in range(3):
+            x_w = solver.cg_solve(lhs_cg, rhs_cg, max_iter=2000)
+            warm.append((solver.solver_timing["cg_ms"],
+                         int(solver.solver_timing["cg_graph_replays"])))
+
+        class EagerUnit(StepGraph):
+            def run(self, n):
+                for _ in range(n):
+                    self.step()
+
+        cg_direct.StepGraph = EagerUnit
+        try:
+            for _ in range(3):
+                te = {}
+                x_e = cg_direct.cg_solve(lhs_cg, rhs_cg, tol=solver.tolerance,
+                                         max_iter=2000, device=dev, timing=te)
+                eager.append(te["cg_ms"])
+        finally:
+            cg_direct.StepGraph = StepGraph
+        # 32 iterations a unit: the first call's first eager, the rest replays
+        replays = int(t["cg_graph_replays"])
+        units = int(t["cg_iterations"]) // 32
         ok = (x.shape == rhs_cg.shape and np.isfinite(x).all() and res <= 1e-4
+              and int(t["cg_iterations"]) == 128 and replays == units - 1
+              and all(r == units for _, r in warm)
+              and np.array_equal(x_w, x) and np.array_equal(x_e, x)
               and launched["sliced_diag_spmv"] > 0)
         log(f"phase cg: n={n} operator {type(A_cg).__name__} "
-            f"iterations {int(t['cg_iterations'])} iterate loop {t['cg_ms']:.2f} ms "
-            f"(call with operator build and upload {wall:.2f} s; warm call's "
-            f"loop {warm_ms:.2f} ms) residual(host f64) {res:.3e} device "
+            f"iterations {int(t['cg_iterations'])} cold loop {t['cg_ms']:.2f} ms "
+            f"(unit capture {t['cg_capture_ms']:.1f} ms; call with operator build "
+            f"and upload {wall:.2f} s), graph replays {replays}; warm loops "
+            f"{', '.join(f'{w:.2f}' for w, _ in warm)} ms ({warm[0][1]} replays each); "
+            f"eager units (the loop before the graph) {', '.join(f'{e:.2f}' for e in eager)} "
+            f"ms; x equal across all {np.array_equal(x_w, x) and np.array_equal(x_e, x)}; "
+            f"residual(host f64) {res:.3e} device "
             f"{t['cg_residual']:.3e} launches {launched} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("1M CG solve failed its checks")
@@ -1128,18 +1230,29 @@ def main():
         t_wall = time.perf_counter()
         counts.reset()
         x, iters, res_dev, _ = mq.solve(B, Y)
+        traced_ms = mq.ctx.timing["cycles"]
+        fused = []
+        for _ in range(2):          # cold (captures the reduced cycle), warm
+            xf, iters_f, _, _ = mq.solve(B, Y, mode="fused")
+            fused.append((mq.ctx.timing["cycles"], mq.ctx.dispatched))
+        mq_graph = dict(mq.ctx.timing)
         launched = counts.read()
         u = mq.unknown
         r = mq.A_uu @ x[u] - (B[u] - mq.A_uk @ Y)
         Muu = M[u][:, u]
         b_u = B[u] - mq.A_uk @ Y
         res = float(np.sqrt((r @ (Muu @ r)) / (b_u @ (Muu @ b_u))))
+        same = bool(np.array_equal(xf, x)) and iters_f == iters
         ok = (np.isfinite(x).all() and np.array_equal(x[known], Y)
-              and res <= 1e-4 and launched["sliced_spmv"] > 0
+              and res <= 1e-4 and launched["sliced_spmv"] > 0 and same
+              and mq_graph["graph_captures"] == 1
               and launched["sliced_diag_spmv"] > 0 and launched["diag_spmv"] == 0)
         log(f"phase minquad: n={n} known {known.size} dof={mq.ctx.hierarchy.dof} "
-            f"{layouts(mq.ctx)} precompute {t_pre:.2f} s cycles {iters} "
-            f"{mq.ctx.timing['cycles']:.2f} ms residual(host f64, reduced, "
+            f"{layouts(mq.ctx)} precompute {t_pre:.2f} s cycles {iters} traced "
+            f"{traced_ms:.2f} ms, fused cold / warm "
+            f"{fused[0][0]:.2f} / {fused[1][0]:.2f} ms ({fused[1][1]} cycles run, "
+            f"graph pool {mq_graph['graph_pool_mib']:.1f} MiB), fused x == traced x "
+            f"{same}; residual(host f64, reduced, "
             f"criterion 2) {res:.3e} device {res_dev:.3e} x[known]==Y "
             f"{bool(np.array_equal(x[known], Y))} launches {launched} "
             f"{'ok' if ok else 'FAIL'}")
@@ -1174,7 +1287,12 @@ def main():
             torch.cuda.synchronize()
             seen["context_s"] = time.perf_counter() - t
             x_t = plain_solve(lhs_t, rhs_t, *args, **kw)
-            seen.update(lhs=lhs_t, rhs=rhs_t, x=x_t)
+            seen["traced"] = dict(fs.solver_timing)
+            # the same system in mode="fused" on the context update_lhs has
+            # just refreshed: its graph is captured anew
+            x_f = plain_solve(lhs_t, rhs_t, *args, **{**kw, "mode": "fused"})
+            seen["fused"] = dict(fs.solver_timing)
+            seen.update(lhs=lhs_t, rhs=rhs_t, x=x_t, x_fused=x_f)
             return x_t
 
         fs.solve = recording_solve
@@ -1186,7 +1304,11 @@ def main():
             launched = counts.read()
             res = fs.residual(seen["lhs"], seen["rhs"], seen["x"])
             contexts.update(id(c) for c in fs._contexts.values())
-            step_ok = (np.isfinite(Vt).all() and res <= 1e-4
+            tr, fu = seen["traced"], seen["fused"]
+            same = (bool(np.array_equal(seen["x_fused"], seen["x"]))
+                    and fu["iterations"] == tr["iterations"])
+            step_ok = (np.isfinite(Vt).all() and res <= 1e-4 and same
+                       and fu["graph_captures"] == 1
                        and len(fs._contexts) == 1 and len(contexts) == 1
                        and launched["sliced_spmv"] > 0
                        and launched["sliced_diag_spmv"] > 0
@@ -1194,9 +1316,12 @@ def main():
             ok &= step_ok
             what = "context setup" if step == 0 else "update_lhs"
             log(f"phase flow: step {step} cycles "
-                f"{int(fs.solver_timing['iterations'])} {what} "
-                f"{seen['context_s'] * 1000:.1f} ms solve "
-                f"{fs.solver_timing['cycles']:.2f} ms residual(host f64) {res:.3e} "
+                f"{int(tr['iterations'])} {what} "
+                f"{seen['context_s'] * 1000:.1f} ms solve traced "
+                f"{tr['cycles']:.2f} ms, fused {fu['cycles']:.2f} ms (captured anew, "
+                f"{fu['graph_capture_ms']:.1f} ms; graph pool "
+                f"{fu['graph_pool_mib']:.1f} MiB at d=3 f64), fused x == traced x "
+                f"{same}; residual(host f64) {res:.3e} "
                 f"contexts {len(fs._contexts)} launches {launched} "
                 f"{'ok' if step_ok else 'FAIL'}")
         fs.solve = plain_solve

@@ -122,6 +122,7 @@ class MultigridSolver:
         self._hierarchy_ours = self.hierarchy
         self._hierarchy_sig21: Optional[HierarchyData] = None
         self._contexts: dict = {}
+        self._cg_units: dict = {}     # cg_solve's captured unit (direct.py)
         self._active_hierarchy = Hierarchy.OURS
         self.convergence: List[tuple] = []
         self.solver_timing: dict = {}
@@ -159,6 +160,12 @@ class MultigridSolver:
                 )
             self.hierarchy = self._hierarchy_sig21
         self._active_hierarchy = hierarchy_type
+        self._drop_contexts()
+
+    def _drop_contexts(self):
+        """Forget every solve context, with its fused solves' graphs."""
+        for ctx in self._contexts.values():
+            ctx.release_graphs()
         self._contexts.clear()
 
     def set_prolongation_matrices(self, U_list):
@@ -194,7 +201,7 @@ class MultigridSolver:
         self.hierarchy = HierarchyData(
             dof, levels, self.pos, self.neigh, dict(self.hierarchy.timing)
         )
-        self._contexts.clear()
+        self._drop_contexts()
 
     # ---- solving -----------------------------------------------------------
 
@@ -218,7 +225,7 @@ class MultigridSolver:
                 device=self.device, diag_min_groups=self.diag_min_groups,
             )
             while len(self._contexts) >= self._CONTEXT_LRU:
-                self._contexts.pop(next(iter(self._contexts)))
+                self._contexts.pop(next(iter(self._contexts))).release_graphs()
         else:
             # Same pattern: value-only update unless the values match too.
             lhs2 = lhs.tocsr()
@@ -234,6 +241,11 @@ class MultigridSolver:
 
         Parity: reference ``solve`` (core.py:80-90 -> solverType 2,
         multigrid_solver.cpp:1367-1451).  Returns x as a numpy array.
+        ``mode="traced"`` steps the cycles from the host and records a
+        real time per cycle in ``convergence``; ``mode="fused"`` runs the
+        JAX package's device loop, on the card one masked cycle captured
+        as a CUDA graph and replayed, with synthetic timestamps
+        (``MultigridSolveContext.solve``).
         """
         if not sp.issparse(lhs):
             lhs = sp.csr_matrix(lhs)
@@ -263,12 +275,15 @@ class MultigridSolver:
 
     def cg_solve(self, lhs, rhs, max_iter: int = 10000):
         """Jacobi-preconditioned CG on the solver's device (reference
-        solverType 4); iterations and residual land in ``solver_timing``."""
+        solverType 4); iterations and residual land in ``solver_timing``.
+        The solver keeps CG's captured 32-iteration unit for the last
+        operator layout and right-hand-side shape (``cg_solve``'s
+        ``cache``), so a repeated solve replays it from the start."""
         if not sp.issparse(lhs):
             lhs = sp.csr_matrix(lhs)
         return cg_solve(
             lhs, rhs, tol=self.tolerance, max_iter=max_iter, dtype=self.dtype,
-            device=self.device, timing=self.solver_timing,
+            device=self.device, timing=self.solver_timing, cache=self._cg_units,
         )
 
     def residual(self, lhs, rhs, solution, type=2):

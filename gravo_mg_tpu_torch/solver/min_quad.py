@@ -130,7 +130,10 @@ class MinQuadWithFixedMG:
         ``B`` is the full linear term (n,) or (n, d); ``Y`` the fixed
         values (len(known),) or (len(known), d).  Mirrors
         ``min_quad_with_fixed_mg_solve`` (:81-143): reduced RHS
-        ``B_u - A_uk Y``, cycles to tolerance.
+        ``B_u - A_uk Y``, cycles to tolerance.  ``mode`` is the reduced
+        context's (``MultigridSolveContext.solve``): ``"traced"`` steps
+        the cycles from the host, ``"fused"`` replays one captured cycle
+        on the card.
         """
         tol = self.tol if tol is None else float(tol)
         max_iter = self.max_iter if max_iter is None else int(max_iter)

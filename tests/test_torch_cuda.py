@@ -11,7 +11,9 @@ in f64 (the kernels sum slots in their own order, the plain versions in
 torch's reduction order).  Solves go through sliced_spmv (and
 sliced_diag_spmv where a level past the diagonal-run gate is SlicedDiag),
 the halo path's boundary rows through halo_spmv; shuffle_spmv and
-diag_spmv run on the JAX package's layouts only.
+diag_spmv run on the JAX package's layouts only.  ``mode="fused"`` (the
+masked cycle captured as a CUDA graph) and CG's graphed 32-iteration unit
+are held bitwise equal to the host loop and the eager unit.
 """
 
 import numpy as np
@@ -536,3 +538,147 @@ def test_device_hierarchy_on_cuda_matches_cpu(cuda, torus_65k, kind):
         assert (row_err > 1e-5).sum() <= 1e-3 * n
         np.testing.assert_allclose(np.asarray(Ua.sum(axis=1)).ravel(), 1.0, atol=1e-6)
         assert np.abs(a.stats - b.stats).max() <= 1e-3 * n
+
+
+# ---- mode="fused": the masked cycle captured as a CUDA graph ---------------
+
+@pytest.fixture(scope="module")
+def fused_torus():
+    V, F, S, M, neigh = _torus(256, 256)           # 65536 vertices
+    rng = np.random.default_rng(42)
+    return V, S, M, neigh, rng.standard_normal((len(V), 3))
+
+
+def _fused_solver(V, M, neigh, dtype):
+    # the finest level (512 row groups) alone passes the gate of 256: it is
+    # SlicedDiag, 9 applies per cycle and one in the residual
+    return MultigridSolver(V, neigh, M, lower_bound=1000, device="cuda",
+                           dtype=dtype, diag_min_groups=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 1), (torch.float32, 3),
+                                     (torch.float64, 3)])
+def test_fused_graph_matches_traced_bitwise(cuda, fused_torus, dtype, d):
+    """The same kernels in the same order: the graph's iterate, cycle count
+    and trace equal the host loop's bit for bit.  One capture serves
+    repeated solves; every cycle after the first solve's first is a
+    replay; sliced_diag_spmv counts 10 launches per cycle the card ran."""
+    V, S, M, neigh, noise = fused_torus
+    lhs = (1e-6 * M + S).tocsr()
+    rhs = M @ (noise[:, 0] if d == 1 else noise)
+    solver = _fused_solver(V, M, neigh, dtype)
+    ctx = solver._context(lhs)
+    assert isinstance(ctx.levels[0].A, sparse.SlicedDiag)
+    traced = ctx.solve(rhs, mode="traced")
+    for solve in range(3):
+        _reset_launches()
+        fused = ctx.solve(rhs, mode="fused")
+        assert fused[1] == traced[1] and fused[2] == traced[2]
+        assert np.array_equal(fused[0], traced[0])
+        assert [r for _, r in fused[3]] == [r for _, r in traced[3]]
+        t = ctx.timing
+        assert t["graph_captures"] == 1 and t["host_reads"] >= 1
+        assert t["graph_replays"] == ctx.dispatched - (solve == 0)
+        assert sdmod.launches == 10 * ctx.dispatched and slmod.launches > 0
+        assert dmod.launches == smod.launches == 0
+    assert solver.residual(lhs, rhs, fused[0]) <= 1e-4
+    assert len(ctx._fused) == 1
+
+
+@pytest.mark.cuda
+def test_fused_graph_recaptured_after_update_lhs(cuda, fused_torus):
+    V, S, M, neigh, noise = fused_torus
+    solver = _fused_solver(V, M, neigh, torch.float32)
+    rhs = M @ noise[:, 0]
+    lhs = (M + 1e-3 * S).tocsr()
+    ctx = solver._context(lhs)
+    x_old = ctx.solve(rhs, mode="fused")[0]
+    loop = next(iter(ctx._fused.values()))
+    lhs2 = (M + 1e-2 * S).tocsr()
+    assert solver._context(lhs2) is ctx and ctx._fused == {}   # update_lhs
+    assert loop.graph.graph is None                             # released
+    traced = ctx.solve(rhs, mode="traced")
+    fused = ctx.solve(rhs, mode="fused")
+    assert np.array_equal(fused[0], traced[0]) and fused[1] == traced[1]
+    assert ctx.timing["graph_captures"] == 1
+    assert solver.residual(lhs2, rhs, fused[0]) <= 1e-4
+    assert np.linalg.norm(fused[0] - x_old) > 1e-2 * np.linalg.norm(x_old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poisson,max_iter", [(True, 100), (False, 2000)])
+def test_cg_graph_matches_eager_unit(cuda, fused_torus, poisson, max_iter,
+                                     monkeypatch):
+    """CG's 32-iteration unit replayed from its graph, captured in this
+    solve and kept in a cache for the next, against the same unit run
+    eagerly on the card: equal iterations and x.  Poisson at tol 1e-10
+    stops at max_iter = 100 (three units and 4 eager iterations)."""
+    from gravo_mg_tpu_torch.solver import device_loop, direct
+
+    V, S, M, neigh, noise = fused_torus
+    lhs = (1e-6 * M + S).tocsr() if poisson else (M + 1e-3 * S).tocsr()
+    rhs = M @ noise[:, 0]
+    tol = 1e-10 if poisson else 1e-4
+    runs = []
+    cache = {}
+    for run in ("graph", "cached", "eager"):
+        if run == "eager":
+            class EagerUnit(device_loop.StepGraph):
+                def run(self, n):
+                    for _ in range(n):
+                        self.step()
+            monkeypatch.setattr(direct, "StepGraph", EagerUnit)
+        timing = {}
+        x = direct.cg_solve(lhs, rhs, tol=tol, max_iter=max_iter, device=cuda,
+                            timing=timing, cache=cache if run != "eager" else None)
+        runs.append((x, timing))
+    (x, t), (x_cached, t_cached), (x_eager, t_eager) = runs
+    units = t["cg_iterations"] // 32
+    assert t["cg_iterations"] == t_cached["cg_iterations"] == t_eager["cg_iterations"]
+    assert (t["cg_iterations"] == max_iter) == poisson
+    # the first solve runs its first unit eagerly; the cached one replays all
+    assert t["cg_graph_replays"] == units - 1 > 0 and t["cg_capture_ms"] > 0
+    assert t_cached["cg_graph_replays"] == units and t_cached["cg_capture_ms"] == 0
+    assert t_eager["cg_graph_replays"] == 0
+    assert np.isfinite(x).all() and np.array_equal(x, x_eager)
+    assert np.array_equal(x_cached, x_eager)
+
+
+@pytest.mark.cuda
+def test_fused_step_that_syncs_raises(cuda, fused_torus, monkeypatch):
+    """A step that makes the host wait for the card cannot be captured: the
+    solve raises, and no eager loop takes over.  Last in the file: a
+    failed capture is the one thing here that touches the CUDA context's
+    error state."""
+    from gravo_mg_tpu_torch.solver import device_loop
+    from gravo_mg_tpu_torch.solver import multigrid as mg
+
+    x = torch.ones(1000, device=cuda)
+    steps = []
+
+    def syncing():
+        steps.append(float(x.sum()))
+
+    g = device_loop.StepGraph(syncing, cuda)
+    with pytest.raises(RuntimeError, match="capturing the step failed"):
+        g.run(2)
+    assert steps == [1000.0] and g.graph is None and g.replays == 0
+
+    V, S, M, neigh, noise = fused_torus
+    solver = _fused_solver(V, M, neigh, torch.float32)
+    lhs = (M + 1e-3 * S).tocsr()
+    ctx = solver._context(lhs)
+    plain = mg.cycle_step
+
+    def syncing_cycle(*args):
+        out = plain(*args)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(mg, "cycle_step", syncing_cycle)
+    _reset_launches()
+    with pytest.raises(RuntimeError, match="capturing the step failed"):
+        ctx.solve(M @ noise[:, 0], mode="fused")
+    # the warm-up cycle ran; the failed capture's launches were taken back
+    assert sdmod.launches == 10
