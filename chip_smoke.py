@@ -44,9 +44,18 @@ phase, counted from 0; any failure exits non-zero before the last line):
    halo: the same system on phase poisson's context over 4 row partitions
    (``parallel.halo.HaloContext``) held by one NCCL rank on this card
    (one-rank process group, ``file://`` rendezvous): each part's layout,
-   stored entries and bytes per apply, the halo parts' bytes per cycle,
-   cold and warm solves against phase poisson's solution, one warm solve
-   under torch.profiler;
+   stored entries and bytes per apply, the halo parts' bytes per cycle;
+   the solve in mode="fused" (one masked halo cycle, its NCCL all-gather
+   and all-reduce included, captured as a CUDA graph and replayed) beside
+   mode="traced" (the host loop), cold and 3 warm solves each, the fused
+   iterate held bitwise equal to the traced one and both against phase
+   poisson's solution, one warm solve of each under torch.profiler;
+   halo-multigpu: where the machine has 2 or more GPUs, the same system
+   over one NCCL rank per GPU (4 ranks, or 2 with fewer than 4 GPUs;
+   ``chip_smoke.py --halo-rank`` processes, ``file://`` rendezvous), fused
+   beside traced on every rank, against each rank's single-device solve;
+   with one GPU it prints that it did not run (``--multigpu-only`` runs
+   this phase alone);
 5. cg: ``solver.cg_solve`` on the same torus, lhs M + 1e-3 S, rhs
    M @ randn (seed 42), tol 1e-4, max_iter 2000 (its 32-iteration unit
    replayed from a CUDA graph);
@@ -68,7 +77,13 @@ phase, counted from 0; any failure exits non-zero before the last line):
    cycles); the 65k torus built on the card and on the CPU (samples,
    labels, coarse graphs and rounds identical, U within 1e-5 on >= 99.9%
    of rows); SIG06 and ablation at 262k on the device engines beside
-   phase baselines' cycles.
+   phase baselines' cycles;
+10. comparisons: the port's comparison harness
+   (``python -m gravo_mg_tpu_torch.experiments.comparisons``) at its
+   default generated sizes (10k and 40k spheres, 16k and 65k tori) on
+   the card in mode="fused": direct, SIG21, SIG06, CG and ours, then the
+   ablation hierarchy, 3 repetitions each (cold and warm solves), and its
+   table generator; every row must meet tol.
 
 Every solve's residual is recomputed on the host in f64.  The
 second-to-last line is a JSON object with one entry per kernel (launches
@@ -78,6 +93,7 @@ exits non-zero.
 """
 
 import atexit
+import contextlib
 import json
 import os
 import re
@@ -343,6 +359,252 @@ def rel_residual_f64(A, x, b):
     return float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
 
 
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return smi.stdout.strip() or smi.stderr.strip()
+
+
+HALO_KW = dict(tol=1e-4, criteria=2, max_iter=50)
+
+
+def halo_rank_main(rank, world, init_file):
+    """One rank of phase halo-multigpu (``chip_smoke.py --halo-rank <rank>
+    <world> <init file>``): the 1M Poisson system on this rank's GPU,
+    ``4 // world`` of its 4 row partitions, fused and traced, cold and 3
+    warm solves each, and the single-device fused solve on the same GPU;
+    prints one ``HALO_RANK {json}`` line."""
+    import torch
+    import torch.distributed as dist
+    from gravo_mg_tpu_torch import MultigridSolver
+    from gravo_mg_tpu_torch.ops import halo_spmv as hmod
+    from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
+    from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
+    from gravo_mg_tpu_torch.parallel import multihost
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext
+    from gravo_mg_tpu_torch.utils.laplacian import cotan_laplacian, mass_barycentric
+    from gravo_mg_tpu_torch.utils.meshgen import torus_mesh
+    from gravo_mg_tpu_torch.utils.neighbors import neighbors_from_faces
+    from gravo_mg_tpu_torch.utils.profiler import torch_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(init_method=f"file://{init_file}", world_size=world,
+                         rank=rank, backend="nccl")
+    V, F = torus_mesh(*TORUS_1M)
+    n = V.shape[0]
+    S, M = cotan_laplacian(V, F), mass_barycentric(V, F)
+    lhs = (1e-6 * M + S).tocsr()
+    rhs = (M @ np.random.default_rng(42).standard_normal((n, 1)))[:, 0]
+    solver = MultigridSolver(V, neighbors_from_faces(F), M, lower_bound=1000,
+                             device="cuda")
+    ctx = solver._context(lhs)
+    t0 = time.perf_counter()
+    hctx = HaloContext(ctx, multihost.global_row_mesh(4 // world, "cuda"))
+    t_build = time.perf_counter() - t0
+    remote = sum(len(op.sends) + len(op.recvs)
+                 for lvl in hctx.levels for op in (lvl.A, lvl.U.U, lvl.U.UT))
+    mods = {"sliced_spmv": slmod, "sliced_diag_spmv": sdmod, "halo_spmv": hmod}
+    for m in mods.values():
+        m.launches = 0
+    x, it, res = hctx.solve(rhs, **HALO_KW)
+    launches = {k: m.launches for k, m in mods.items()}
+    cold = dict(hctx.timing)
+    run0 = hctx.dispatched
+    xt, itt, rest = hctx.solve(rhs, mode="traced", **HALO_KW)
+    traced_cold = hctx.timing["cycles_ms"]
+    warm = {"fused": [], "traced": []}
+    for _ in range(3):
+        for mode in warm:
+            hctx.solve(rhs, mode=mode, **HALO_KW)
+            warm[mode].append(hctx.timing["cycles_ms"])
+    trace_dir = tempfile.mkdtemp(prefix="gravo_halo_rank_")
+    try:
+        with torch_trace(trace_dir, name="halo_rank_fused_warm_solve") as prof:
+            hctx.solve(rhs, **HALO_KW)
+        prof_msg = trace_summary(prof, "halo_rank_fused_warm_solve", hctx.dispatched)
+    finally:
+        shutil.rmtree(trace_dir, True)
+    captures = int(hctx.timing["graph_captures"])
+    xs, its, _, _ = ctx.solve(rhs, tol=HALO_KW["tol"], mode="fused")
+    out = {
+        "rank": rank, "world": world, "gpu": torch.cuda.current_device(),
+        "partitions": hctx.mesh.n_partitions, "remote_transfers": remote,
+        "partition_build_s": t_build, "cycles": it, "res": res,
+        "cycles_traced": itt, "res_traced": rest, "cycles_single": its,
+        "fused_equals_traced": bool(np.array_equal(x, xt)),
+        "rel_vs_single": float(np.abs(x - xs).max() / np.abs(xs).max()),
+        "residual_host": solver.residual(lhs, rhs, x), "cycles_run": run0,
+        "launches": launches, "captures": captures,
+        "capture_ms": cold["graph_capture_ms"], "pool_mib": cold["graph_pool_mib"],
+        "cold_ms": cold["cycles_ms"], "traced_cold_ms": traced_cold,
+        "warm_fused_ms": warm["fused"], "warm_traced_ms": warm["traced"],
+        "profile": prof_msg,
+    }
+    dist.destroy_process_group()
+    print("HALO_RANK " + json.dumps(out), flush=True)
+    return 0
+
+
+def multigpu_phase(work_dir, cycles_single=None):
+    """Phase halo-multigpu: ``world = 4`` ranks (2 with fewer than 4 GPUs),
+    one per GPU, each holding ``4 // world`` of the 1M system's 4 row
+    partitions, NCCL point-to-point between the GPUs inside the captured
+    halo cycle.  With one GPU it says so and does not run.  Returns
+    whether every check passed."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"phase halo-multigpu: {count} GPU present: the phase did not run "
+            f"(it needs 2 or more)")
+        return True
+    world = 4 if count >= 4 else 2
+    init_file = os.path.join(work_dir, "rendezvous_multigpu")
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo")
+    env.pop("TORCH_NCCL_BLOCKING_WAIT", None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--halo-rank", str(r),
+         str(world), init_file], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=env, text=True) for r in range(world)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines() if ln.startswith("HALO_RANK ")]
+        if p.returncode != 0 or not line:
+            log(f"phase halo-multigpu: rank {r} failed (rc {p.returncode}):")
+            log(out[-6000:])
+            return False
+        results.append(json.loads(line[-1][len("HALO_RANK "):]))
+    r0 = results[0]
+    checks = {
+        "every rank the same cycles": len({r["cycles"] for r in results}) == 1,
+        "cycles == single-device": all(r["cycles"] == r["cycles_single"] for r in results),
+        "fused x == traced x (bitwise)": all(r["fused_equals_traced"] for r in results),
+        "fused cycles, res == traced": all(
+            (r["cycles"], r["res"]) == (r["cycles_traced"], r["res_traced"])
+            for r in results),
+        "rel vs single < 1e-4": all(r["rel_vs_single"] < 1e-4 for r in results),
+        "residual <= 1e-4": all(r["residual_host"] <= 1e-4 for r in results),
+        "one capture": all(r["captures"] == 1 for r in results),
+        "remote transfers": all(r["remote_transfers"] > 0 for r in results),
+        "sliced_diag_spmv == 10 x cycles run": all(
+            r["launches"]["sliced_diag_spmv"] == 10 * r["cycles_run"] for r in results),
+        "halo_spmv launched": all(r["launches"]["halo_spmv"] > 0 for r in results),
+    }
+    if cycles_single is not None:
+        checks["cycles within 1 of poisson"] = abs(r0["cycles"] - cycles_single) <= 1
+    for r in results:
+        log(f"phase halo-multigpu: rank {r['rank']} of {r['world']} on GPU {r['gpu']}, "
+            f"{r['partitions']} partitions, {r['remote_transfers']} remote transfers, "
+            f"partition build {r['partition_build_s']:.2f} s; cycles {r['cycles']} "
+            f"(single-device {r['cycles_single']}) residual(host f64) "
+            f"{r['residual_host']:.3e} rel vs single {r['rel_vs_single']:.3e}; fused "
+            f"cold {r['cold_ms']:.2f} ms (capture {r['capture_ms']:.1f} ms, pool "
+            f"{r['pool_mib']:.1f} MiB), warm {', '.join(f'{w:.3f}' for w in r['warm_fused_ms'])} "
+            f"ms; traced cold {r['traced_cold_ms']:.2f} ms, warm "
+            f"{', '.join(f'{w:.3f}' for w in r['warm_traced_ms'])} ms; launches "
+            f"{r['launches']}")
+    log(f"phase halo-multigpu: rank 0 fused warm solve under the profiler: {r0['profile']}")
+    ok = all(checks.values())
+    log(f"phase halo-multigpu: {world} ranks on {count} GPUs in "
+        f"{time.perf_counter() - t0:.1f} s; checks "
+        f"{[k for k, v in checks.items() if not v] or 'all passed'} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def comparisons_phase(work_dir):
+    """Phase comparisons: the port's harness
+    (``gravo_mg_tpu_torch.experiments.comparisons``) at its default
+    generated sizes on the card, with the device loop (``--mode fused``):
+    direct, SIG21, SIG06, CG and ours, then the ablation hierarchy in the
+    ours slot, 3 repetitions each, and the table generator.  Returns
+    whether every row met tol."""
+    from gravo_mg_tpu_torch.experiments import comparisons
+
+    ok = True
+    for label, extra in (("laplacian", ["--sig06", "--direct", "--cg"]),
+                         ("ablation", ["--ablation", "--nosig21"])):
+        out = os.path.join(work_dir, "comparisons", "timing")
+        t0 = time.perf_counter()
+        # the harness's own progress lines go to a file beside its CSVs
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, f"{label}.log"), "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            table = comparisons.main(["--label", label, "--out_dir", out,
+                                      "--num_repetitions", "3", "--device", "cuda",
+                                      "--mode", "fused", *extra])
+        wall = time.perf_counter() - t0
+        ours = {}
+        with open(os.path.join(out, f"solver_ours_tau0.001_{label}.csv")) as fh:
+            head = fh.readline().strip().split(",")
+            for line in fh:
+                row = dict(zip(head, line.strip().split(",")))
+                ours.setdefault(row["experiment"], []).append(
+                    (float(row["cycles"]), float(row["warm_cycles"])))
+        for row in table:
+            keys = [k for k in ("mean_residue", "sig06_residue", "sig21_residue")
+                    if k in row]
+            this_ok = all(row[k] <= 1e-4 for k in keys)
+            ok &= this_ok
+            exp = row["experiment"].lower().replace(" ", "_")
+            log(f"phase comparisons: {label} {row['experiment']} ({row['n_vertices']}): "
+                f"hierarchy {row['mean_hierarchy']:.3f} s, cycles "
+                f"{row['mean_iterations']:g}, solve {row['mean_solver']:.4f} s, "
+                f"device loop cold / warm ms "
+                f"{[f'{c:.2f} / {w:.2f}' for c, w in ours.get(exp, [])]}, residue "
+                f"{row['mean_residue']:.2e}"
+                + "".join(f"; {p.upper()} hierarchy {row[p + '_hierarchy']:.3f} s cycles "
+                          f"{row[p + '_iterations']:g} solve {row[p + '_solver']:.4f} s "
+                          f"residue {row[p + '_residue']:.2e}"
+                          for p in ("sig21", "sig06") if p + "_residue" in row)
+                + (f"; CG {row['cg_solver']:.1f} ms" if "cg_solver" in row else "")
+                + (f"; direct factor {row['direct_factor']:.3f} s solve "
+                   f"{row['direct_solve']:.4f} s" if "direct_factor" in row else "")
+                + f" {'ok' if this_ok else 'FAIL'}")
+        log(f"phase comparisons: {label}: {len(table)} shapes in {wall:.1f} s")
+    return ok
+
+
+def multigpu_main():
+    """``chip_smoke.py --multigpu-only``: build the libraries, then phase
+    halo-multigpu alone (for a machine with several GPUs)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+        return 2
+    from gravo_mg_tpu_torch import native
+    from gravo_mg_tpu_torch.ops import build
+
+    log(f"nvidia-smi: {nvidia_smi()}")
+    native.get_lib()
+    build.build_library()
+    work_dir = tempfile.mkdtemp(prefix="gravo_halo_")
+    try:
+        ok = multigpu_phase(work_dir)
+    finally:
+        shutil.rmtree(work_dir, True)
+    if not ok:
+        log("FAILED phase halo-multigpu")
+        return 1
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     import torch
 
@@ -386,11 +648,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     log(f"tf32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    log(f"nvidia-smi: {smi.stdout.strip() or smi.stderr.strip()}")
+    log(f"nvidia-smi: {nvidia_smi()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     dev = torch.device("cuda")
@@ -1110,37 +1368,58 @@ def main():
         log(f"phase halo: per cycle at d=1 ({sum(w for *_, w in parts)} partitioned "
             f"applies): halo parts {halo_mb:.3f} MB, interiors {inner_mb:.1f} MB; "
             f"nloc per level {[lv['nloc'] for lv in plan]}")
-        kw = dict(tol=1e-4, criteria=2, max_iter=50)
+        kw = HALO_KW
+        # The main path: mode="fused", one masked halo cycle (its NCCL
+        # all-gather and all-reduce included) captured on the cold solve
+        # and replayed.  mode="traced" (the host loop) beside it.
         counts.reset()
         t0 = time.perf_counter()
         xh, hcycles, hres_dev = hctx.solve(rhs, **kw)
         cold_s = time.perf_counter() - t0
         launches = counts.read()
-        cold_ms = hctx.timing["cycles_ms"]
-        warm = []
+        ht = dict(hctx.timing)
+        hrun0 = hctx.dispatched
+        t0 = time.perf_counter()
+        xh_tr, hcycles_tr, hres_tr = hctx.solve(rhs, mode="traced", **kw)
+        traced_cold = (hctx.timing["cycles_ms"], time.perf_counter() - t0)
+        warm = {"fused": [], "traced": []}
         for _ in range(3):
-            hctx.solve(rhs, **kw)
-            warm.append(hctx.timing["cycles_ms"])
+            for mode in ("fused", "traced"):
+                t0 = time.perf_counter()
+                hctx.solve(rhs, mode=mode, **kw)
+                warm[mode].append((hctx.timing["cycles_ms"], time.perf_counter() - t0,
+                                   hctx.dispatched,
+                                   int(hctx.timing.get("host_reads", 0))))
         hres = solver.residual(lhs, rhs, xh)
         rel = float(np.abs(xh - x_single).max() / np.abs(x_single).max())
         # The same without the deflated constant, which dominates max|x|:
         # a solve that returned only the constant would still pass `rel`.
         xs0, xh0 = x_single - x_single.mean(), xh - xh.mean()
         rel0 = float(np.abs(xh0 - xs0).max() / np.abs(xs0).max())
-        with torch_trace(halo_dir, name="halo_warm_solve") as prof:
+        with torch_trace(halo_dir, name="halo_fused_warm_solve") as prof:
             hctx.solve(rhs, **kw)
+        fused_prof_ms = hctx.timing["cycles_ms"]
+        fused_captures = int(hctx.timing["graph_captures"])
+        fused_msg = trace_summary(prof, "halo_fused_warm_solve", hctx.dispatched)
+        with torch_trace(halo_dir, name="halo_warm_solve") as prof:
+            hctx.solve(rhs, mode="traced", **kw)
         traced_ms = hctx.timing["cycles_ms"]
-        trace_msg = trace_summary(prof, "halo_warm_solve", hcycles)
+        trace_msg = trace_summary(prof, "halo_warm_solve", hcycles_tr)
         halo0 = plan[0]["A"]["halo"]
         checks = {
             "residual <= 1e-4": hres <= 1e-4,
             "cycles within 1 of poisson": abs(hcycles - cycles_single) <= 1,
             "rel diff < 1e-4": rel < 1e-4,
             "mean-free rel diff < 1e-3": rel0 < 1e-3,
+            "fused x == traced x (bitwise)": np.array_equal(xh, xh_tr),
+            "fused cycles, res == traced": (hcycles, hres_dev) == (hcycles_tr, hres_tr),
+            "one capture over all fused solves": fused_captures == 1,
+            "sliced_diag_spmv == 10 x cycles run":
+                launches["sliced_diag_spmv"] == 10 * hrun0,
             "level-0 halo < 5% of nloc": halo0 < 0.05 * plan[0]["nloc"],
             "A0 interior SlicedDiag": plan[0]["A"]["interior"] == "SlicedDiag",
             "halo_spmv launched": launches["halo_spmv"] > 0,
-            "sliced_diag_spmv launched": launches["sliced_diag_spmv"] > 0,
+            "sliced_spmv launched": launches["sliced_spmv"] > 0,
             "no shuffle_spmv": launches["shuffle_spmv"] == 0,
             "no diag_spmv": launches["diag_spmv"] == 0,
             "finite": bool(np.isfinite(xh).all()) and xh.shape == rhs.shape,
@@ -1151,22 +1430,45 @@ def main():
             f"{cycles_single}) residual(host f64) {hres:.3e} device {hres_dev:.3e} "
             f"max|x_halo - x_single|/max|x_single| {rel:.3e} (mean-free parts "
             f"{rel0:.3e})")
-        log(f"phase halo: cold solve cycles {cold_ms:.2f} ms "
-            f"({cold_ms / max(hcycles, 1):.3f} ms/cycle, call {cold_s:.3f} s), "
-            f"warm {', '.join(f'{w:.2f}' for w in warm)} ms "
-            f"({min(warm) / max(hcycles, 1):.3f} ms/cycle); traced warm solve "
-            f"{traced_ms:.2f} ms: {trace_msg}")
-        log(f"phase halo: launches {launches} checks "
+        log(f"phase halo: fused cold solve cycles {ht['cycles_ms']:.2f} ms (call "
+            f"{cold_s:.3f} s), {hrun0} cycles run, host_reads {int(ht['host_reads'])} "
+            f"graph_replays {int(ht['graph_replays'])} graph_captures "
+            f"{int(ht['graph_captures'])}, capture {ht['graph_capture_ms']:.1f} ms, "
+            f"graph pool {ht['graph_pool_mib']:.1f} MiB (d=1 f32); traced cold solve "
+            f"{traced_cold[0]:.2f} ms (call {traced_cold[1]:.3f} s)")
+        for mode, runs in warm.items():
+            ms = sorted(w for w, *_ in runs)
+            log(f"phase halo: warm {mode}: cycles ms " + ", ".join(
+                f"{w:.3f}" for w, *_ in runs) + f" (median {ms[len(ms) // 2]:.3f}, "
+                f"{ms[len(ms) // 2] / max(hcycles, 1):.3f} ms/cycle); calls s "
+                + ", ".join(f"{c:.4f}" for _, c, *_ in runs)
+                + f"; cycles run {[r[2] for r in runs]}"
+                + (f" host reads {[r[3] for r in runs]}" if mode == "fused" else ""))
+        log(f"phase halo: fused warm solve under the profiler {fused_prof_ms:.2f} ms: "
+            f"{fused_msg}")
+        log(f"phase halo: traced warm solve under the profiler {traced_ms:.2f} ms: "
+            f"{trace_msg}")
+        log(f"phase halo: launches {launches} (fused cold solve; sliced_diag_spmv "
+            f"expected 10 per cycle run, {hrun0} run) checks "
             f"{[k for k, v in checks.items() if not v] or 'all passed'} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("1M halo solve failed its checks")
         dist.destroy_process_group()
-        del hctx, xh
+        del hctx, xh, xh_tr
         torch.cuda.empty_cache()
         log(f"halo: wall {time.perf_counter() - t_wall:.2f} s")
     except Exception as exc:  # noqa: BLE001
         fail("halo", exc)
+
+    # ---- halo-multigpu: the same system, one NCCL rank per GPU ---------------
+    try:
+        t_wall = time.perf_counter()
+        if not multigpu_phase(halo_dir, cycles_single):
+            raise AssertionError("the multi-GPU halo solve failed its checks")
+        log(f"halo-multigpu: wall {time.perf_counter() - t_wall:.2f} s")
+    except Exception as exc:  # noqa: BLE001
+        fail("halo-multigpu", exc)
 
     # ---- 5. device CG on the 1M torus ---------------------------------------
     try:
@@ -1512,6 +1814,15 @@ def main():
     except Exception as exc:  # noqa: BLE001
         fail("hierarchy", exc)
 
+    # ---- 10. comparisons: the port's harness at its default sizes ------------
+    try:
+        t_wall = time.perf_counter()
+        if not comparisons_phase(trace_dir):
+            raise AssertionError("the comparison harness failed its checks")
+        log(f"comparisons: wall {time.perf_counter() - t_wall:.2f} s")
+    except Exception as exc:  # noqa: BLE001
+        fail("comparisons", exc)
+
     sources = {
         "sliced_spmv": ("sliced_spmv.cu", "gravo_mg_tpu/ops/shuffle_spmv.py:87"),
         "diag_spmv": ("diag_spmv.cu", "gravo_mg_tpu/ops/diag_spmv.py:146"),
@@ -1543,4 +1854,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--halo-rank"]:
+        sys.exit(halo_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--multigpu-only"]:
+        sys.exit(multigpu_main())
     sys.exit(main())

@@ -29,6 +29,15 @@ operator, both transfers and the mass matrix are block-partitioned over
   partitioned operators; the coarsest level all-gathers its right-hand
   side and applies the replicated, identity-padded coarse inverse; the
   residual check all-reduces per-column sums.
+* The loop (:meth:`HaloContext.solve`) is the JAX package's
+  ``shard_map``-wrapped ``while_loop`` by default: the single-device
+  :class:`~gravo_mg_tpu_torch.solver.multigrid.FusedLoop` over the
+  partitioned levels, the coarse solve and the all-reduced residual, so
+  on the card one masked halo cycle, its NCCL collectives and
+  point-to-point transfers included, is captured once as a CUDA graph and
+  replayed.  Every rank reads the same all-reduced stop flag, so every
+  rank replays the same number of times.  ``mode="traced"`` steps the
+  cycles from the host.
 
 The local vector of a level is this rank's partitions laid end to end,
 each padded from ``nloc`` rows to ``stride`` rows (a multiple of 1024), so
@@ -48,7 +57,9 @@ import torch.distributed as dist
 
 from ..ops.halo_spmv import halo_spmv
 from ..solver.multigrid import (
+    FusedLoop,
     LevelOps,
+    _FUSED_TIMING,
     _full_fp32_matmul,
     cycle_step,
     deflation_alpha,
@@ -405,7 +416,13 @@ class PartitionedOp:
         self.recv_sel = (idx(recv_pos), idx(recv_dst)) if self.recvs else None
 
     def _post(self, x):
-        """Post this rank's point-to-point transfers; returns (work, buffer)."""
+        """Post this rank's point-to-point transfers; returns (work, buffer).
+
+        Legal inside a CUDA graph capture (the buffers come from the
+        graph's pool, ``wait`` only makes the stream wait) once the NCCL
+        communicators exist: the first, eager step of a fused solve
+        (``device_loop.StepGraph``) creates them, the point-to-point ones
+        that NCCL makes lazily included, before anything is captured."""
         if not self.sends and not self.recvs:
             return None, None
         tail = tuple(x.shape[1:])
@@ -483,6 +500,10 @@ class HaloContext:
     exchange plans for every level of the Galerkin chain, both transfers,
     the mass matrix and the replicated coarse inverse; :meth:`solve` then
     iterates cycles on the mesh's device.
+
+    ``mode="fused"`` keeps one loop per ``(columns, criteria, max_iter)``,
+    as the JAX package keys its compiled loop, and one graph pool for all
+    of them (:meth:`release_graphs` drops both).
     """
 
     def __init__(self, ctx, mesh: SolverMesh):
@@ -533,6 +554,9 @@ class HaloContext:
             return torch.from_numpy(mp).to(mesh.device, self.dtype)
 
         self._coarse_op = (pad_identity(Ainv), pad_identity(Ad))
+        self._fused: dict = {}
+        self._graph_pool = None
+        self.dispatched = 0    # cycles the last solve ran, masked ones included
         self.timing = {"partition_build_s": time.perf_counter() - t0}
 
     # ---- layout helpers --------------------------------------------------
@@ -599,16 +623,46 @@ class HaloContext:
 
     # ---- host API ----------------------------------------------------------
 
+    def release_graphs(self) -> None:
+        """Drop the fused solves' loops and graphs, and so their memory
+        pool (as ``MultigridSolveContext.release_graphs``)."""
+        for loop in self._fused.values():
+            loop.release()
+        self._fused.clear()
+        self._graph_pool = None
+
+    def _fused_loop(self, cols, criteria: int, max_iter: int) -> FusedLoop:
+        key = (cols, criteria, max_iter)
+        loop = self._fused.get(key)
+        if loop is None:
+            if self._graph_pool is None and self.mesh.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            loop = self._fused[key] = FusedLoop(
+                self.cfg, self.levels, self._coarse,
+                lambda b, x: torch.sqrt(self._residual_num_sq(b, x, criteria)),
+                max_iter, self._graph_pool)
+        return loop
+
     def solve(self, rhs: np.ndarray, *, tol: float = 1e-4, criteria: int = 2,
-              max_iter: int = 100):
+              max_iter: int = 100, mode: str = "fused"):
         """Deflate (host, f64), iterate cycles to ``tol``, un-deflate.
 
         ``rhs`` is the full ``(n,)`` or ``(n, d)`` right-hand side on every
-        rank.  The host loop reads the all-reduced residual after every
-        cycle (no lookahead), so every rank stops after the same cycle;
-        the criterion is the max over columns.  Returns ``(x, iters,
-        res)`` with the full solution on every rank.
+        rank; the criterion is the max over columns, all-reduced, so every
+        rank stops after the same cycle.  ``mode="fused"`` is the JAX
+        package's device loop (:class:`FusedLoop`): on the card one masked
+        halo cycle, captured once per ``(columns, criteria, max_iter)``,
+        replayed ``CYCLES_PER_READ`` times per host read of the stop flag;
+        a capture or replay that fails raises.  ``mode="traced"`` is a host
+        loop that reads the residual after every cycle (no lookahead),
+        with honest per-cycle times.  Both return the first iterate that
+        meets tol: ``(x, iters, res)`` with the full solution on every
+        rank.  ``timing`` holds ``cycles_ms`` and, after a fused solve,
+        ``host_reads``, ``graph_replays``, ``graph_captures``,
+        ``graph_capture_ms`` and ``graph_pool_mib``.
         """
+        if mode not in ("traced", "fused"):
+            raise ValueError(f"unknown solve mode {mode!r}")
         ctx = self.ctx
         rhs = np.asarray(rhs, dtype=np.float64)
         squeeze = rhs.ndim == 1
@@ -634,13 +688,26 @@ class HaloContext:
 
         b = self._local_vec(b_eff[:, 0] if squeeze else b_eff, 0)
         x = torch.zeros_like(b)
+        for key in _FUSED_TIMING:
+            self.timing.pop(key, None)
         t0 = time.perf_counter()
-        iters, res = 0, float("inf")
-        while res > tol and iters < max_iter:
-            x = cycle_step(self.cfg, self.levels, self._coarse, b, x)
-            num_sq = self._residual_num_sq(b, x, criteria)
-            res = float(torch.max(torch.sqrt(num_sq) / den))
-            iters += 1
+        if mode == "fused":
+            loop = self._fused_loop(None if squeeze else d, criteria, max_iter)
+            x, iters, res, _, self.dispatched, reads, replays = loop.run(
+                b, x, den, tol)
+            g = loop.graph
+            self.timing.update(
+                host_reads=float(reads), graph_replays=float(replays),
+                graph_captures=float(g.captures), graph_capture_ms=g.capture_ms,
+                graph_pool_mib=g.pool_mib)
+        else:
+            iters, res = 0, float("inf")
+            while res > tol and iters < max_iter:
+                x = cycle_step(self.cfg, self.levels, self._coarse, b, x)
+                num_sq = self._residual_num_sq(b, x, criteria)
+                res = float(torch.max(torch.sqrt(num_sq) / den))
+                iters += 1
+            self.dispatched = iters
         self.timing["cycles_ms"] = (time.perf_counter() - t0) * 1000
         D, nl, P = self.ndev, self.nloc[0], self.stride[0]
         full = self._all_gather(x).double().cpu().numpy()

@@ -29,9 +29,16 @@ Runbook (N processes, e.g. ``torchrun --nproc-per-node N script.py``)::
     multihost.initialize()                     # env:// from torchrun
     mesh = multihost.global_row_mesh(1, "cuda")
     ... build MultigridSolver / its context (host, identical per rank) ...
-    x, iters, res = HaloContext(ctx, mesh).solve(rhs)
+    hctx = HaloContext(ctx, mesh)
+    x, iters, res = hctx.solve(rhs)                  # mode="fused"
+    x, iters, res = hctx.solve(rhs, mode="traced")   # host loop, per-cycle times
 
 Each rank passes the same full ``rhs``; every rank gets the full solution.
+``mode="fused"`` (the default) captures one masked halo cycle, its NCCL
+collectives and point-to-point transfers included, as a CUDA graph on the
+first solve; its first cycle runs eagerly and so creates every NCCL
+communicator before the capture.  Leave ``TORCH_NCCL_BLOCKING_WAIT`` unset:
+a captured ``wait`` may only make the stream wait.
 """
 
 from __future__ import annotations

@@ -198,15 +198,16 @@ class _LoopState:
     more: torch.Tensor     # 0-d bool: the loop's cond after the last cycle
 
 
-def _masked_cycle(cfg, levels, coarse, M, Minv_diag, criteria, max_iter, st):
+def _masked_cycle(cfg, levels, coarse, numerator, max_iter, st):
     """One step of the JAX ``fused_solve`` loop with masking in place of
     its ``cond``: the cycle always runs, and changes nothing where the
-    loop would already have stopped.  Nothing here reads the card from
-    the host, so the step can be captured."""
+    loop would already have stopped.  ``numerator(b, x)`` gives the
+    per-column residual numerators (:func:`residual.residual_numerator`
+    on one device, the all-reduced one on a halo mesh).  Nothing here
+    reads the card from the host, so the step can be captured."""
     active = (st.res > st.tol) & (st.it < max_iter)
     x_new = cycle_step(cfg, levels, coarse, st.b, st.x)
-    num = residual_numerator(levels[0].A, M, Minv_diag, st.b, x_new, criteria)
-    r_new = torch.max(num / st.den)
+    r_new = torch.max(numerator(st.b, x_new) / st.den)
     st.x.copy_(torch.where(active, x_new, st.x))
     st.trace.copy_(torch.where(active & (st.slots == st.it), r_new, st.trace))
     st.res.copy_(torch.where(active, r_new, st.res))
@@ -225,13 +226,15 @@ class FusedLoop:
     One loop serves one (right-hand-side shape, criteria, max_iter) of
     one set of operators; ``tol`` is a value in a buffer.  The result is
     JAX's: the first iterate that meets tol, its ``iters``, ``res`` and
-    ``trace[:iters]``.
+    ``trace[:iters]``.  ``levels`` and ``coarse`` are the cycle's
+    (:func:`cycle_step`), ``numerator(b, x)`` the residual criterion's
+    per-column numerators: the single-device loop and the halo solver's
+    (``parallel/halo.py``) differ only in these.
     """
 
-    def __init__(self, cfg, levels, coarse, M, Minv_diag, criteria: int,
-                 max_iter: int, pool=None):
-        self._step_args = (cfg, levels, coarse, M, Minv_diag, int(criteria),
-                           int(max_iter))
+    def __init__(self, cfg, levels, coarse, numerator, max_iter: int,
+                 pool=None):
+        self._step_args = (cfg, levels, coarse, numerator, int(max_iter))
         self.max_iter = int(max_iter)
         self.pool = pool
         self.state: Optional[_LoopState] = None
@@ -280,12 +283,19 @@ class FusedLoop:
             self.graph.release()
 
 
+def _numerator(levels, M, Minv_diag, criteria: int):
+    """The single-device residual numerator ``(b, x) -> (d,)``."""
+    return functools.partial(residual_numerator, levels[0].A, M, Minv_diag,
+                             criteria=int(criteria))
+
+
 def fused_solve(cfg: SolverConfig, levels, coarse, M, Minv_diag, b, x0, den,
                 tol: float, criteria: int, max_iter: int, pool=None):
     """The JAX package's ``fused_solve`` with its arguments: ``(x, iters,
     res, trace)``, ``trace`` holding the ``iters`` residuals."""
     x, iters, res, trace, *_ = FusedLoop(
-        cfg, levels, coarse, M, Minv_diag, criteria, max_iter, pool,
+        cfg, levels, coarse, _numerator(levels, M, Minv_diag, criteria),
+        max_iter, pool,
     ).run(b, x0, den, tol)
     return x, iters, res, trace
 
@@ -687,8 +697,9 @@ class MultigridSolveContext:
             if self._graph_pool is None and self.device.type == "cuda":
                 self._graph_pool = torch.cuda.graph_pool_handle()
             loop = self._fused[key] = FusedLoop(
-                self.cfg, self.levels, self.coarse_op, self.M, self.Minv_diag,
-                criteria, max_iter, self._graph_pool)
+                self.cfg, self.levels, self.coarse_op,
+                _numerator(self.levels, self.M, self.Minv_diag, criteria),
+                max_iter, self._graph_pool)
         return loop
 
     def _sync(self):

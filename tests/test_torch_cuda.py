@@ -13,7 +13,12 @@ sliced_diag_spmv where a level past the diagonal-run gate is SlicedDiag),
 the halo path's boundary rows through halo_spmv; shuffle_spmv and
 diag_spmv run on the JAX package's layouts only.  ``mode="fused"`` (the
 masked cycle captured as a CUDA graph) and CG's graphed 32-iteration unit
-are held bitwise equal to the host loop and the eager unit.
+are held bitwise equal to the host loop and the eager unit, and so is the
+halo solver's captured cycle (``HaloContext.solve``) in one process, on a
+one-rank NCCL group and, where two GPUs are present, across two NCCL
+ranks, whose workers run this file as a script:
+
+    python tests/test_torch_cuda.py nccl-halo-worker <rank> <world> <init file>
 """
 
 import numpy as np
@@ -645,6 +650,179 @@ def test_cg_graph_matches_eager_unit(cuda, fused_torus, poisson, max_iter,
     assert np.array_equal(x_cached, x_eager)
 
 
+# ---- the halo solver's device loop: one masked halo cycle as a graph --------
+
+def _halo_solver(V, M, neigh):
+    # the gate of 16 row groups: the stacked interiors of A0 and A1 (4
+    # partitions of a 1024-row stride) are SlicedDiag
+    return MultigridSolver(V, neigh, M, lower_bound=200, device="cuda",
+                           diag_min_groups=16)
+
+
+def _halo_fused_against_traced(hctx, rhs, solves=3):
+    """``solves`` fused solves of ``rhs`` against one traced solve: the
+    same iterate bit for bit, cycles and residual; one capture in all;
+    every cycle after the first solve's first is a replay; each wrapper's
+    launches per cycle the card ran equal the host loop's per cycle."""
+    _reset_launches()
+    traced = hctx.solve(rhs, tol=1e-5, max_iter=50, mode="traced")
+    assert hctx.dispatched == traced[1]
+    per_cycle = [m.launches // traced[1] for m in (sdmod, slmod, hmod)]
+    assert [m.launches for m in (sdmod, slmod, hmod)] == [k * traced[1] for k in per_cycle]
+    assert min(per_cycle) > 0
+    for solve in range(solves):
+        _reset_launches()
+        fused = hctx.solve(rhs, tol=1e-5, max_iter=50)
+        assert fused[1] == traced[1] and fused[2] == traced[2]
+        assert np.array_equal(fused[0], traced[0])
+        t = hctx.timing
+        assert t["graph_captures"] == 1 and t["host_reads"] >= 1
+        assert t["graph_replays"] == hctx.dispatched - (solve == 0)
+        assert ([m.launches for m in (sdmod, slmod, hmod)]
+                == [k * hctx.dispatched for k in per_cycle])
+        assert dmod.launches == smod.launches == 0
+    assert len(hctx._fused) == 1
+    return fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3])
+def test_halo_fused_graph_matches_traced_bitwise(cuda, halo_torus, d):
+    """Four partitions in one process (no process group): the captured
+    halo cycle against the host loop, then ``release_graphs``."""
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext, make_solver_mesh
+
+    V, M, neigh, lhs = halo_torus
+    rhs = M @ np.random.default_rng(d).standard_normal((len(V), d))
+    rhs = rhs[:, 0] if d == 1 else rhs
+    solver = _halo_solver(V, M, neigh)
+    hctx = HaloContext(solver._context(lhs), make_solver_mesh(4, cuda))
+    x, _, res = _halo_fused_against_traced(hctx, rhs)
+    assert res <= 1e-5 and solver.residual(lhs, rhs, x) <= 2e-5
+    loop = next(iter(hctx._fused.values()))
+    hctx.release_graphs()
+    assert hctx._fused == {} and loop.graph.graph is None
+
+
+@pytest.mark.cuda
+def test_halo_fused_graph_on_one_rank_nccl_group(cuda, halo_torus, tmp_path,
+                                                 monkeypatch):
+    """A one-rank NCCL group holding four partitions: the coarse solve's
+    all-gather and the residual's all-reduce are NCCL calls inside the
+    captured cycle."""
+    import torch.distributed as dist
+
+    from gravo_mg_tpu_torch.parallel import multihost
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext
+
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    multihost.initialize(init_method=f"file://{tmp_path / 'rendezvous'}",
+                         world_size=1, rank=0, backend="nccl")
+    try:
+        V, M, neigh, lhs = halo_torus
+        rhs = M @ np.random.default_rng(5).standard_normal(len(V))
+        solver = _halo_solver(V, M, neigh)
+        mesh = multihost.global_row_mesh(4, "cuda")
+        assert mesh.distributed
+        hctx = HaloContext(solver._context(lhs), mesh)
+        x, _, res = _halo_fused_against_traced(hctx, rhs)
+        assert res <= 1e-5 and solver.residual(lhs, rhs, x) <= 2e-5
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_halo_worker(rank: int, world: int, init_file: str) -> None:
+    """One rank of ``test_halo_fused_on_two_nccl_ranks`` (its own GPU, two
+    partitions): fused against traced bit for bit, then against the same
+    four partitions held by one process."""
+    import torch.distributed as dist
+
+    from gravo_mg_tpu_torch.parallel import multihost
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext, make_solver_mesh
+
+    multihost.initialize(init_method=f"file://{init_file}", world_size=world,
+                         rank=rank, backend="nccl")
+    V, F, S, M, neigh = _torus(128, 96)
+    lhs = (M + 1e-3 * S).tocsr()
+    rhs = M @ np.random.default_rng(5).standard_normal(len(V))
+    solver = _halo_solver(V, M, neigh)
+    mesh = multihost.global_row_mesh(2, "cuda")
+    hctx = HaloContext(solver._context(lhs), mesh)
+    remote = sum(len(op.sends) + len(op.recvs)
+                 for lvl in hctx.levels for op in (lvl.A, lvl.U.U, lvl.U.UT))
+    assert remote > 0, remote
+    x, iters, res = _halo_fused_against_traced(hctx, rhs)
+    x1, it1, _ = HaloContext(solver._context(lhs),
+                             make_solver_mesh(4, "cuda")).solve(rhs, tol=1e-5,
+                                                                max_iter=50)
+    rel = np.abs(x - x1).max() / np.abs(x1).max()
+    print(f"r{rank}: iters {iters} (one rank {it1}) res {res:.3e} rel {rel:.3e} "
+          f"bitwise {np.array_equal(x, x1)} remote transfers {remote}", flush=True)
+    assert iters == it1 and rel < 1e-4 and res <= 1e-5
+    dist.destroy_process_group()
+    print(f"r{rank}: NCCL_HALO_OK", flush=True)
+
+
+@pytest.mark.cuda
+def test_halo_fused_on_two_nccl_ranks(cuda, tmp_path):
+    """Two processes, one GPU and two partitions each: the first capture of
+    NCCL point-to-point transfers (``batch_isend_irecv``) in the halo
+    cycle.  Skips with fewer than two GPUs."""
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 GPUs; {torch.cuda.device_count()} present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    init = str(tmp_path / "rendezvous")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "nccl-halo-worker", str(r),
+         "2", init], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=env, text=True) for r in range(2)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and "NCCL_HALO_OK" in out, f"rank {r}:\n{out[-4000:]}"
+
+
+@pytest.mark.cuda
+def test_halo_fused_step_that_syncs_raises(cuda, halo_torus, monkeypatch):
+    """A halo cycle that makes the host wait cannot be captured: the solve
+    raises, and no host loop takes over."""
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext, make_solver_mesh
+    from gravo_mg_tpu_torch.solver import multigrid as mg
+
+    V, M, neigh, lhs = halo_torus
+    hctx = HaloContext(_halo_solver(V, M, neigh)._context(lhs),
+                       make_solver_mesh(4, cuda))
+    plain = mg.cycle_step
+
+    def syncing_cycle(*args):
+        out = plain(*args)
+        out.sum().item()
+        return out
+
+    rhs = M @ np.random.default_rng(5).standard_normal(len(V))
+    _reset_launches()
+    hctx.solve(rhs, tol=1e-5, max_iter=1, mode="traced")
+    per_cycle = sdmod.launches
+    monkeypatch.setattr(mg, "cycle_step", syncing_cycle)
+    _reset_launches()
+    with pytest.raises(RuntimeError, match="capturing the step failed"):
+        hctx.solve(rhs, tol=1e-5, max_iter=50)
+    # the warm-up cycle ran; the failed capture's launches were taken back
+    assert sdmod.launches == per_cycle > 0
+
+
 @pytest.mark.cuda
 def test_fused_step_that_syncs_raises(cuda, fused_torus, monkeypatch):
     """A step that makes the host wait for the card cannot be captured: the
@@ -682,3 +860,10 @@ def test_fused_step_that_syncs_raises(cuda, fused_torus, monkeypatch):
         ctx.solve(M @ noise[:, 0], mode="fused")
     # the warm-up cycle ran; the failed capture's launches were taken back
     assert sdmod.launches == 10
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1] == "nccl-halo-worker":
+        _nccl_halo_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -6,7 +6,10 @@ processes on the CPU, two partitions each (D = 4), joined through a
 ``tests/multihost_worker.py`` does for the JAX package: ``torus_mesh(48,
 48)``, ``M + 1e-3 S``, tol 1e-6, and asserts ``res < 1e-6``, a solution
 within 1e-4 relative of its own single-device solve, and the same
-iteration count.  ``test_four_process_halo_solve`` runs four ranks of one
+iteration count, for the host loop (``mode="traced"``) and the device
+loop (``mode="fused"``, which the CPU steps eagerly); every rank stops
+after the same cycle, and the fused iterate equals the traced one bit for
+bit.  ``test_four_process_halo_solve`` runs four ranks of one
 partition each, ``test_one_process_gloo_world`` a one-rank world that
 holds four partitions.  The workers import no JAX.
 
@@ -50,18 +53,31 @@ def _worker(rank: int, world: int, init_file: str, ppr: int) -> None:
     remote = sum(len(op.sends) + len(op.recvs)
                  for lvl in hctx.levels for op in (lvl.A, lvl.U.U, lvl.U.UT))
     assert (remote > 0) == (world > 1), remote
-    x, iters, res = hctx.solve(rhs, tol=1e-6, criteria=2)
-    print(f"r{rank}: iters={iters} res={res:.3e} remote transfers {remote}", flush=True)
-    assert res < 1e-6, res
+    import torch.distributed as dist
+
     x_ref, it_ref, _, _ = ctx.solve(rhs, tol=1e-6, criteria=2)
-    rel = np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref)
-    print(f"r{rank}: rel-vs-single={rel:.3e} (iters {iters} vs {it_ref})", flush=True)
-    assert rel < 1e-4, rel
-    assert iters == it_ref, (iters, it_ref)
-    # multi-column rhs through the same exchange
+    traced = hctx.solve(rhs, tol=1e-6, criteria=2, mode="traced")
+    for mode in ("traced", "fused"):
+        x, iters, res = hctx.solve(rhs, tol=1e-6, criteria=2, mode=mode)
+        print(f"r{rank}: {mode} iters={iters} res={res:.3e} remote transfers "
+              f"{remote}", flush=True)
+        assert res < 1e-6, res
+        rel = np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref)
+        print(f"r{rank}: {mode} rel-vs-single={rel:.3e} (iters {iters} vs {it_ref})",
+              flush=True)
+        assert rel < 1e-4, rel
+        assert iters == it_ref, (iters, it_ref)
+        # every rank stopped after the same cycle
+        ran = [None] * world
+        dist.all_gather_object(ran, (iters, hctx.dispatched))
+        assert ran == [(iters, iters)] * world, ran
+    # the fused loop's iterate is the host loop's, bit for bit
+    assert np.array_equal(x, traced[0]) and (iters, res) == traced[1:], (iters, res)
+    # multi-column rhs through the same exchange, both loops
     X, _, res3 = hctx.solve(M @ V, tol=1e-6, criteria=2)
     assert X.shape == V.shape and res3 < 1e-6, res3
-    import torch.distributed as dist
+    X_tr = hctx.solve(M @ V, tol=1e-6, criteria=2, mode="traced")[0]
+    assert np.array_equal(X, X_tr)
 
     dist.destroy_process_group()
     print(f"r{rank}: MULTIHOST_OK", flush=True)
