@@ -7,8 +7,9 @@ Phases (each prints its own lines, with the kernel launch counts of that
 phase, counted from 0; any failure exits non-zero before the last line):
 
 1. build: the native host library (g++) and the CUDA kernels (nvcc,
-   sm_90a; four sources, five kernels) from the sources in this
-   checkout, all compilers at once;
+   sm_90a; five sources: five SpMV kernels, and the loop-control kernel
+   and graph calls of the fused loop's WHILE graph) from the sources in
+   this checkout, all compilers at once;
 2. kernels: each kernel against its plain PyTorch version on the card at
    real operator shapes, d = 1 and 3, f32 (plus one f64 check each), with
    times and bounds: every SlicedEll operator of the 1M Poisson context
@@ -35,21 +36,26 @@ phase, counted from 0; any failure exits non-zero before the last line):
    checked against a host direct solve;
 4. poisson: the 1M-vertex torus Poisson solve (1e-6 M + S, rhs M @ randn,
    seed 42, tol 1e-4, criterion 2, lower_bound 1000) through the facade
-   in mode="fused" (one masked cycle captured as a CUDA graph and
-   replayed) beside mode="traced" (the host loop): cold and warm solves,
-   warm fused solves at 1, 2 and 4 cycles per host read, the fused
-   iterate held bitwise equal to the traced one, and one warm solve of
-   each under torch.profiler (kernel ms per cycle run by kernel, device
-   idle share);
+   in mode="fused" (the cycle captured as a CUDA graph and run under a
+   conditional WHILE node: one graph launch and one host wait per warm
+   solve) beside mode="traced" (the host loop): cold and 5 warm solves
+   of each in turns, the fused iterate and trace held bitwise equal to
+   the traced ones, the host reads and graph launches of every fused
+   solve, one capture and one WHILE graph in all, the WHILE graph's
+   nodes, build ms and device ms (CUDA events around its launches), and
+   one warm solve of each under torch.profiler (kernel ms per cycle run
+   by kernel, device idle share);
    halo: the same system on phase poisson's context over 4 row partitions
    (``parallel.halo.HaloContext``) held by one NCCL rank on this card
    (one-rank process group, ``file://`` rendezvous): each part's layout,
    stored entries and bytes per apply, the halo parts' bytes per cycle;
-   the solve in mode="fused" (one masked halo cycle, its NCCL all-gather
-   and all-reduce included, captured as a CUDA graph and replayed) beside
-   mode="traced" (the host loop), cold and 3 warm solves each, the fused
-   iterate held bitwise equal to the traced one and both against phase
-   poisson's solution, one warm solve of each under torch.profiler;
+   the solve in mode="fused" (one halo cycle, its NCCL all-gather and
+   all-reduce included, captured as a CUDA graph and run under the WHILE
+   node) beside mode="traced" (the host loop), cold and 5 warm solves
+   each, the fused iterate held bitwise equal to the traced one and both
+   against phase poisson's solution, host reads, graph launches and the
+   WHILE graph's device ms as in phase poisson, one warm solve of each
+   under torch.profiler;
    halo-multigpu: where the machine has 2 or more GPUs, the same system
    over one NCCL rank per GPU (4 ranks, or 2 with fewer than 4 GPUs;
    ``chip_smoke.py --halo-rank`` processes, ``file://`` rendezvous), fused
@@ -61,10 +67,13 @@ phase, counted from 0; any failure exits non-zero before the last line):
    replayed from a CUDA graph);
 6. minquad: MinQuadWithFixedMG on that solver (built with the 1M system,
    before phase kernels), lhs S + 1e-3 M, 5% of the vertices known,
-   criterion 2, tol 1e-4, max_iter 20, traced and fused;
+   criterion 2, tol 1e-4, max_iter 20, traced and fused (cold and warm,
+   their host reads and graph launches);
 7. flow: three ConformalFlow steps on the 1M torus (tau 1e-3, tol 1e-4,
    f64: f32's residual floor on this system is above 1e-4), one solver
-   context throughout, each step's system solved traced and fused;
+   context throughout, each step's system solved traced and fused (cold
+   after update_lhs, then warm), device memory reserved flat over the
+   steps;
 8. baselines: the reference protocol's "Torus 262K" row
    (torus_mesh(724, 362, r=0.5), area-normalized, cotan S, Voronoi M,
    lhs M + 1e-3 S, rhs M @ randn, seed 0) with OURS, SIG06, ablation and
@@ -83,11 +92,17 @@ phase, counted from 0; any failure exits non-zero before the last line):
    default generated sizes (10k and 40k spheres, 16k and 65k tori) on
    the card in mode="fused": direct, SIG21, SIG06, CG and ours, then the
    ablation hierarchy, 3 repetitions each (cold and warm solves), and its
-   table generator; every row must meet tol.
+   table generator; every row must meet tol, and every multigrid solve
+   must be one WHILE-graph launch, cold and warm (one host read warm).
 
-Every solve's residual is recomputed on the host in f64.  The
-second-to-last line is a JSON object with one entry per kernel (launches
-summed over the solve phases); the last line is ``{"ok": true, "device": {...}}``.
+Every solve's residual is recomputed on the host in f64.  An early line
+gives the card's name and power limit (nvidia-smi); the third-to-last
+line is a JSON object ``{"loop": ...}`` for the WHILE graph's
+loop-control kernel (its
+launches, the graph's launches and bodies in phase poisson, nodes, build
+and device ms); the second-to-last line is a JSON object with one entry
+per SpMV kernel (launches summed over the solve phases); the last line
+is ``{"ok": true, "device": {...}}``.
 The script needs CUDA and the rest of the repository; without either it
 exits non-zero.
 """
@@ -323,6 +338,40 @@ def trace_summary(prof, label, cycles):
             + ", ".join(f"{k} {v / 1000:.3f} ms" for k, v in top))
 
 
+@contextlib.contextmanager
+def loop_events():
+    """CUDA events on the launching stream around every launch of a WHILE
+    graph in the block: the loop's device time, without the profiler's
+    own cost; yields the list of (start, end) pairs."""
+    import torch
+    from gravo_mg_tpu_torch.ops import build
+
+    lib = build.load_library()
+    launch = lib.gravomg_graph_loop_launch
+    pairs = []
+
+    def timed(exec_, stream):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        err = launch(exec_, stream)
+        e1.record()
+        pairs.append((e0, e1))
+        return err
+
+    lib.gravomg_graph_loop_launch = timed
+    try:
+        yield pairs
+    finally:
+        lib.gravomg_graph_loop_launch = launch
+
+
+def spmv_events(prof, name):
+    """Device events of SpMV kernel ``name`` in a torch.profiler run."""
+    pat = re.compile(rf"(?<![A-Za-z_]){name}_kernel")
+    return sum(1 for e in device_events(prof, "") if pat.search(e.name))
+
+
 def layout_csr(L):
     """The real entries of a SlicedEll or SlicedDiag on the card as a
     scipy csr matrix (the cuSPARSE yardstick's input)."""
@@ -416,10 +465,14 @@ def halo_rank_main(rank, world, init_file):
     xt, itt, rest = hctx.solve(rhs, mode="traced", **HALO_KW)
     traced_cold = hctx.timing["cycles_ms"]
     warm = {"fused": [], "traced": []}
+    warm_loop = []
     for _ in range(3):
         for mode in warm:
             hctx.solve(rhs, mode=mode, **HALO_KW)
             warm[mode].append(hctx.timing["cycles_ms"])
+            if mode == "fused":
+                warm_loop.append((int(hctx.timing["host_reads"]),
+                                  int(hctx.timing["graph_launches"])))
     trace_dir = tempfile.mkdtemp(prefix="gravo_halo_rank_")
     try:
         with torch_trace(trace_dir, name="halo_rank_fused_warm_solve") as prof:
@@ -427,7 +480,7 @@ def halo_rank_main(rank, world, init_file):
         prof_msg = trace_summary(prof, "halo_rank_fused_warm_solve", hctx.dispatched)
     finally:
         shutil.rmtree(trace_dir, True)
-    captures = int(hctx.timing["graph_captures"])
+    (loop,) = hctx._fused.values()
     xs, its, _, _ = ctx.solve(rhs, tol=HALO_KW["tol"], mode="fused")
     out = {
         "rank": rank, "world": world, "gpu": torch.cuda.current_device(),
@@ -437,7 +490,10 @@ def halo_rank_main(rank, world, init_file):
         "fused_equals_traced": bool(np.array_equal(x, xt)),
         "rel_vs_single": float(np.abs(x - xs).max() / np.abs(xs).max()),
         "residual_host": solver.residual(lhs, rhs, x), "cycles_run": run0,
-        "launches": launches, "captures": captures,
+        "launches": launches, "captures": loop.graph.captures,
+        "builds": loop.graph.builds, "cold_loop": [int(cold["host_reads"]),
+                                                   int(cold["graph_launches"])],
+        "warm_loop": warm_loop,
         "capture_ms": cold["graph_capture_ms"], "pool_mib": cold["graph_pool_mib"],
         "cold_ms": cold["cycles_ms"], "traced_cold_ms": traced_cold,
         "warm_fused_ms": warm["fused"], "warm_traced_ms": warm["traced"],
@@ -496,7 +552,11 @@ def multigpu_phase(work_dir, cycles_single=None):
             for r in results),
         "rel vs single < 1e-4": all(r["rel_vs_single"] < 1e-4 for r in results),
         "residual <= 1e-4": all(r["residual_host"] <= 1e-4 for r in results),
-        "one capture": all(r["captures"] == 1 for r in results),
+        "one capture, one WHILE graph":
+            all((r["captures"], r["builds"]) == (1, 1) for r in results),
+        "cold: 2 host reads, 1 launch": all(r["cold_loop"] == [2, 1] for r in results),
+        "warm: 1 host read, 1 launch":
+            all(w == [1, 1] for r in results for w in r["warm_loop"]),
         "remote transfers": all(r["remote_transfers"] > 0 for r in results),
         "sliced_diag_spmv == 10 x cycles run": all(
             r["launches"]["sliced_diag_spmv"] == 10 * r["cycles_run"] for r in results),
@@ -546,13 +606,28 @@ def comparisons_phase(work_dir):
                                       "--num_repetitions", "3", "--device", "cuda",
                                       "--mode", "fused", *extra])
         wall = time.perf_counter() - t0
-        ours = {}
-        with open(os.path.join(out, f"solver_ours_tau0.001_{label}.csv")) as fh:
-            head = fh.readline().strip().split(",")
-            for line in fh:
-                row = dict(zip(head, line.strip().split(",")))
-                ours.setdefault(row["experiment"], []).append(
-                    (float(row["cycles"]), float(row["warm_cycles"])))
+        ours, loops = {}, []
+        for name in os.listdir(out):
+            if not name.startswith("solver_") or not name.endswith(f"_{label}.csv"):
+                continue
+            with open(os.path.join(out, name)) as fh:
+                head = fh.readline().strip().split(",")
+                for line in fh:
+                    row = dict(zip(head, line.strip().split(",")))
+                    if "warm_graph_launches" in row:   # a multigrid solve
+                        loops.append((name, row["experiment"], row["graph_launches"],
+                                      row["warm_host_reads"],
+                                      row["warm_graph_launches"]))
+                    if name.startswith("solver_ours_"):
+                        ours.setdefault(row["experiment"], []).append(
+                            (float(row["cycles"]), float(row["warm_cycles"])))
+        # every multigrid solve: one WHILE-graph launch, cold and warm; the
+        # warm one waits on the host once
+        bad = [r for r in loops if tuple(float(v) for v in r[2:]) != (1.0, 1.0, 1.0)]
+        ok &= bool(loops) and not bad
+        log(f"phase comparisons: {label}: {len(loops)} multigrid solves, each one graph "
+            f"launch cold and warm and one host read warm: "
+            f"{'yes' if loops and not bad else f'NO {bad[:4]}'}")
         for row in table:
             keys = [k for k in ("mean_residue", "sig06_residue", "sig21_residue")
                     if k in row]
@@ -627,7 +702,6 @@ def main():
     )
     from gravo_mg_tpu_torch.solver.direct import cg_operator
     from gravo_mg_tpu_torch.solver import direct as cg_direct
-    from gravo_mg_tpu_torch.solver import multigrid as mgmod
     from gravo_mg_tpu_torch.solver.device_loop import StepGraph
     from gravo_mg_tpu_torch.solver.multigrid import _ell_pattern, _ell_values
     from gravo_mg_tpu_torch.sparse import (
@@ -786,6 +860,7 @@ def main():
     sliced_cases += [("M", ctx.M, ctx.mass_csr),
                      ("CG M+1e-3S", sliced_from_scipy(lhs_cg).to(dev), lhs_cg),
                      ("SIG21-262k U0T", sig21_U0T, sig21_UT_csr)]
+    loop_info = {}     # the WHILE graph of phase poisson's fused solves
     kinfo = {name: {"err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
                     "bound_by": None, "library_ms": None}
              for name in Launches.NAMES}
@@ -1220,9 +1295,9 @@ def main():
         fail("smoothing", exc)
 
     # ---- 4. the 1M Poisson solve (main path) ----------------------------------
-    # mode="fused" is the main path: one masked cycle captured as a CUDA
-    # graph on the cold solve and replayed, the stop flag read once per
-    # CYCLES_PER_READ cycles.  mode="traced" (the host loop) beside it.
+    # mode="fused" is the main path: the cycle captured on the cold solve and
+    # run under a conditional WHILE node, one graph launch and one host wait
+    # per warm solve.  mode="traced" (the host loop) beside it.
     try:
         t_wall = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -1244,49 +1319,74 @@ def main():
         conv_traced = [r for _, r in solver.convergence]
         traced_dispatched = ctx.dispatched
 
-        def warm_solves(mode, n=3):
-            out = []
-            for _ in range(n):
+        # warm solves, fused and traced in turns; CUDA events around each
+        # WHILE-graph launch give the loop's device time
+        warm = {"fused": [], "traced": []}
+        warm_x = []
+        with loop_events() as ev:
+            for _ in range(5):
+                for mode in warm:
+                    t0 = time.perf_counter()
+                    xw = solver.solve(lhs, rhs, mode=mode)
+                    t = solver.solver_timing
+                    warm[mode].append((t["cycles"], time.perf_counter() - t0,
+                                       ctx.dispatched, int(t.get("host_reads", 0)),
+                                       int(t.get("graph_launches", 0))))
+                    if mode == "fused":
+                        warm_x.append(xw)
+        loop_dev_ms = [a.elapsed_time(b) for a, b in ev]
+        (loop,) = ctx._fused.values()
+        graph = loop.graph
+        # The same captured body replayed 5 times from the host, back to back
+        # and with a host read of the stop flag after each replay (the loop
+        # before the WHILE node), in turns: the device ms of each (CUDA
+        # events) and its wall ms, beside the WHILE graph's.  The body's
+        # buffers hold the last solve; 5 more cycles change nothing they are
+        # read for, and the next solve resets them.  These replays bypass
+        # the wrappers' launch counts.
+        graph.graph.instantiate()
+        replays = {"back to back": [], "a host read each": []}
+        for _ in range(3):
+            for how, runs in replays.items():
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                solver.solve(lhs, rhs, mode=mode)
-                t = solver.solver_timing
-                out.append((t["cycles"], time.perf_counter() - t0,
-                            ctx.dispatched, int(t.get("host_reads", 0))))
-            return out
-
-        # cycles per host read: 1, 2 and 4 in turns, the traced loop beside
-        # them; the graph is the same for every k (one capture in all)
-        default_k = mgmod.CYCLES_PER_READ
-        sweep = {}
-        for turn in range(2):
-            for k in (1, 2, 4):
-                mgmod.CYCLES_PER_READ = k
-                sweep.setdefault(k, []).extend(warm_solves("fused"))
-            sweep.setdefault("traced", []).extend(warm_solves("traced"))
-        mgmod.CYCLES_PER_READ = default_k
-        solver.solve(lhs, rhs, mode="fused")
-        captures = int(solver.solver_timing["graph_captures"])
+                e0.record()
+                for _ in range(cycles):
+                    graph.graph.replay()
+                    if how == "a host read each":
+                        bool(loop.state.more)
+                e1.record()
+                torch.cuda.synchronize()
+                runs.append((e0.elapsed_time(e1), (time.perf_counter() - t0) * 1000))
         with torch_trace(trace_dir, name="poisson_fused_warm_solve") as prof:
             solver.solve(lhs, rhs, mode="fused")
         fused_traced_ms = solver.solver_timing["cycles"]
-        fused_replays = int(solver.solver_timing["graph_replays"])
         dispatched = ctx.dispatched
         fused_msg = trace_summary(prof, "poisson_fused_warm_solve", dispatched)
+        fused_sdiag_events = spmv_events(prof, "sliced_diag_spmv")
         with torch_trace(trace_dir, name="poisson_traced_warm_solve") as prof:
             solver.solve(lhs, rhs, mode="traced")
         host_traced_ms = solver.solver_timing["cycles"]
         host_dispatched = ctx.dispatched
         host_msg = trace_summary(prof, "poisson_traced_warm_solve", host_dispatched)
-        reads = int(ft["host_reads"])
+        step_nodes = sum(graph.step_nodes.values())
         checks = {
             "finite, shape": bool(np.isfinite(x).all()) and x.shape == rhs.shape,
             "residual <= 1e-4": res <= 1e-4,
             "5 cycles": cycles == 5,
             "fused x == traced x (bitwise)": np.array_equal(x, x_tr),
             "fused trace == traced trace": conv_fused == conv_traced,
-            "one capture over all fused solves": captures == 1,
-            "host reads <= ceil(cycles run / k)":
-                reads <= -(-dispatched0 // default_k),
+            "warm fused x == traced x (bitwise)":
+                all(np.array_equal(xw, x_tr) for xw in warm_x),
+            "cold: 2 host reads, 1 graph launch":
+                (int(ft["host_reads"]), int(ft["graph_launches"])) == (2, 1),
+            "warm: 1 host read, 1 graph launch, 5 cycles run":
+                all(r[2:] == (5, 1, 1) for r in warm["fused"]),
+            "one capture, one WHILE graph over all fused solves":
+                (graph.captures, graph.builds) == (1, 1)
+                and graph.launches == 2 + len(warm["fused"]),
             "sliced_diag_spmv == 10 x cycles run":
                 launches["sliced_diag_spmv"] == 10 * dispatched0,
             "sliced_spmv launched": launches["sliced_spmv"] > 0,
@@ -1294,29 +1394,54 @@ def main():
                 launches["diag_spmv"] == 0 and launches["shuffle_spmv"] == 0,
         }
         ok = all(checks.values())
+        # the loop-control kernel runs once before the WHILE node and once
+        # at the end of every body
+        loop_info.update(
+            launches=graph.launches + graph.bodies, graph_launches=graph.launches,
+            bodies=graph.bodies, step_nodes=graph.step_nodes,
+            outer_nodes=step_nodes + 4, build_ms=graph.build_ms,
+            capture_ms=graph.capture_ms,
+            warm_solve_ms=sorted(w for w, *_ in warm["fused"])[len(warm["fused"]) // 2],
+            device_ms=sorted(loop_dev_ms)[len(loop_dev_ms) // 2])
         log(f"phase poisson: dof={solver.hierarchy.dof} {layouts(ctx)} "
             f"cycles {cycles} residual(host f64) {res:.3e} "
             f"trace {[f'{r:.3e}' for r in conv_fused]}")
+        log(f"phase poisson: WHILE graph: {step_nodes + 4} nodes (the captured cycle's "
+            f"{step_nodes}: {graph.step_nodes}; a control kernel, the WHILE node, "
+            f"the body's child graph and control kernel), built in "
+            f"{ft['graph_build_ms']:.2f} ms (graph_build_ms) after a capture of "
+            f"{ft['graph_capture_ms']:.1f} ms")
         log(f"phase poisson: hierarchy {t_hier:.2f} s setup {t_setup:.2f} s; fused cold "
             f"solve: cycles {cycles_ms:.2f} ms (call {cold_call:.3f} s), {dispatched0} "
-            f"cycles run, {reads} host reads at k = {default_k}, capture "
-            f"{ft['graph_capture_ms']:.1f} ms, graph pool {ft['graph_pool_mib']:.1f} MiB "
-            f"(d=1 f32); traced cold solve {traced_cold[0]:.2f} ms (call "
-            f"{traced_cold[1]:.3f} s, {traced_dispatched} dispatched); peak device "
-            f"memory {peak:.0f} MiB, {peak - mq_mib:.0f} MiB without MinQuad's context "
-            f"({mq_mib:.0f} MiB, resident since poisson-setup)")
-        for k, runs in sweep.items():
+            f"cycles run, {int(ft['host_reads'])} host reads, "
+            f"{int(ft['graph_launches'])} graph launch, graph pool "
+            f"{ft['graph_pool_mib']:.1f} MiB (d=1 f32); traced cold solve "
+            f"{traced_cold[0]:.2f} ms (call {traced_cold[1]:.3f} s, {traced_dispatched} "
+            f"dispatched); peak device memory {peak:.0f} MiB, {peak - mq_mib:.0f} MiB "
+            f"without MinQuad's context ({mq_mib:.0f} MiB, resident since poisson-setup)")
+        for mode, runs in warm.items():
             ms = sorted(w for w, *_ in runs)
-            name = f"fused k={k}" if k != "traced" else "traced"
-            log(f"phase poisson: warm {name}: cycles ms " + ", ".join(
+            log(f"phase poisson: warm {mode}: cycles ms " + ", ".join(
                 f"{w:.3f}" for w, *_ in runs) + f" (median {ms[len(ms) // 2]:.3f}, "
                 f"{ms[len(ms) // 2] / max(cycles, 1):.3f} ms/cycle); calls s "
                 + ", ".join(f"{c:.4f}" for _, c, *_ in runs)
                 + f"; cycles run {[r[2] for r in runs]}"
-                + (f" host reads {[r[3] for r in runs]}" if k != "traced" else ""))
+                + (f" host reads {[r[3] for r in runs]} graph launches "
+                   f"{[r[4] for r in runs]}" if mode == "fused" else ""))
+        log(f"phase poisson: WHILE graph device ms per warm fused solve (CUDA events "
+            f"around its launch): " + ", ".join(f"{m:.4f}" for m in loop_dev_ms)
+            + f" (median {sorted(loop_dev_ms)[len(loop_dev_ms) // 2]:.4f}, "
+            f"{sorted(loop_dev_ms)[len(loop_dev_ms) // 2] / max(cycles, 1):.4f} ms per "
+            f"cycle)")
+        log(f"phase poisson: the captured body replayed {cycles} times from the host "
+            f"(the loop without a WHILE node), device / wall ms: " + "; ".join(
+                f"{how} " + ", ".join(f"{d:.4f} / {w:.4f}" for d, w in runs)
+                for how, runs in replays.items()))
         log(f"phase poisson: fused warm solve under the profiler {fused_traced_ms:.2f} ms, "
-            f"{dispatched} cycles run for {cycles} (graph replays {fused_replays}): "
-            f"{fused_msg}")
+            f"{dispatched} cycles run for {cycles} (1 graph launch; the trace holds "
+            f"{fused_sdiag_events} sliced_diag_spmv events for the {10 * dispatched} "
+            f"the card ran, and the per-cycle figures below divide what it holds by "
+            f"{dispatched}): {fused_msg}")
         log(f"phase poisson: traced warm solve under the profiler {host_traced_ms:.2f} ms, "
             f"{host_dispatched} cycles dispatched for {cycles}: {host_msg}")
         log(f"phase poisson: launches {launches} (sliced_diag_spmv expected 10 per "
@@ -1369,9 +1494,9 @@ def main():
             f"applies): halo parts {halo_mb:.3f} MB, interiors {inner_mb:.1f} MB; "
             f"nloc per level {[lv['nloc'] for lv in plan]}")
         kw = HALO_KW
-        # The main path: mode="fused", one masked halo cycle (its NCCL
-        # all-gather and all-reduce included) captured on the cold solve
-        # and replayed.  mode="traced" (the host loop) beside it.
+        # The main path: mode="fused", one halo cycle (its NCCL all-gather
+        # and all-reduce included) captured on the cold solve and run under
+        # a conditional WHILE node.  mode="traced" (the host loop) beside it.
         counts.reset()
         t0 = time.perf_counter()
         xh, hcycles, hres_dev = hctx.solve(rhs, **kw)
@@ -1383,13 +1508,16 @@ def main():
         xh_tr, hcycles_tr, hres_tr = hctx.solve(rhs, mode="traced", **kw)
         traced_cold = (hctx.timing["cycles_ms"], time.perf_counter() - t0)
         warm = {"fused": [], "traced": []}
-        for _ in range(3):
-            for mode in ("fused", "traced"):
-                t0 = time.perf_counter()
-                hctx.solve(rhs, mode=mode, **kw)
-                warm[mode].append((hctx.timing["cycles_ms"], time.perf_counter() - t0,
-                                   hctx.dispatched,
-                                   int(hctx.timing.get("host_reads", 0))))
+        with loop_events() as ev:
+            for _ in range(5):
+                for mode in ("fused", "traced"):
+                    t0 = time.perf_counter()
+                    hctx.solve(rhs, mode=mode, **kw)
+                    warm[mode].append((hctx.timing["cycles_ms"],
+                                       time.perf_counter() - t0, hctx.dispatched,
+                                       int(hctx.timing.get("host_reads", 0)),
+                                       int(hctx.timing.get("graph_launches", 0))))
+        hloop_dev_ms = [a.elapsed_time(b) for a, b in ev]
         hres = solver.residual(lhs, rhs, xh)
         rel = float(np.abs(xh - x_single).max() / np.abs(x_single).max())
         # The same without the deflated constant, which dominates max|x|:
@@ -1399,8 +1527,10 @@ def main():
         with torch_trace(halo_dir, name="halo_fused_warm_solve") as prof:
             hctx.solve(rhs, **kw)
         fused_prof_ms = hctx.timing["cycles_ms"]
-        fused_captures = int(hctx.timing["graph_captures"])
+        (hloop,) = hctx._fused.values()
+        hgraph = hloop.graph
         fused_msg = trace_summary(prof, "halo_fused_warm_solve", hctx.dispatched)
+        fused_halo_events = spmv_events(prof, "halo_spmv")
         with torch_trace(halo_dir, name="halo_warm_solve") as prof:
             hctx.solve(rhs, mode="traced", **kw)
         traced_ms = hctx.timing["cycles_ms"]
@@ -1413,7 +1543,12 @@ def main():
             "mean-free rel diff < 1e-3": rel0 < 1e-3,
             "fused x == traced x (bitwise)": np.array_equal(xh, xh_tr),
             "fused cycles, res == traced": (hcycles, hres_dev) == (hcycles_tr, hres_tr),
-            "one capture over all fused solves": fused_captures == 1,
+            "cold: 2 host reads, 1 graph launch":
+                (int(ht["host_reads"]), int(ht["graph_launches"])) == (2, 1),
+            "warm: 1 host read, 1 graph launch":
+                all(r[3:] == (1, 1) and r[2] == hcycles for r in warm["fused"]),
+            "one capture, one WHILE graph over all fused solves":
+                (hgraph.captures, hgraph.builds) == (1, 1),
             "sliced_diag_spmv == 10 x cycles run":
                 launches["sliced_diag_spmv"] == 10 * hrun0,
             "level-0 halo < 5% of nloc": halo0 < 0.05 * plan[0]["nloc"],
@@ -1432,8 +1567,10 @@ def main():
             f"{rel0:.3e})")
         log(f"phase halo: fused cold solve cycles {ht['cycles_ms']:.2f} ms (call "
             f"{cold_s:.3f} s), {hrun0} cycles run, host_reads {int(ht['host_reads'])} "
-            f"graph_replays {int(ht['graph_replays'])} graph_captures "
+            f"graph_launches {int(ht['graph_launches'])} graph_captures "
             f"{int(ht['graph_captures'])}, capture {ht['graph_capture_ms']:.1f} ms, "
+            f"WHILE graph of {sum(hgraph.step_nodes.values()) + 4} nodes "
+            f"({hgraph.step_nodes} in the cycle) built in {ht['graph_build_ms']:.2f} ms, "
             f"graph pool {ht['graph_pool_mib']:.1f} MiB (d=1 f32); traced cold solve "
             f"{traced_cold[0]:.2f} ms (call {traced_cold[1]:.3f} s)")
         for mode, runs in warm.items():
@@ -1443,8 +1580,15 @@ def main():
                 f"{ms[len(ms) // 2] / max(hcycles, 1):.3f} ms/cycle); calls s "
                 + ", ".join(f"{c:.4f}" for _, c, *_ in runs)
                 + f"; cycles run {[r[2] for r in runs]}"
-                + (f" host reads {[r[3] for r in runs]}" if mode == "fused" else ""))
-        log(f"phase halo: fused warm solve under the profiler {fused_prof_ms:.2f} ms: "
+                + (f" host reads {[r[3] for r in runs]} graph launches "
+                   f"{[r[4] for r in runs]}" if mode == "fused" else ""))
+        hmed = sorted(hloop_dev_ms)[len(hloop_dev_ms) // 2]
+        log(f"phase halo: WHILE graph device ms per warm fused solve (CUDA events "
+            f"around its launch): " + ", ".join(f"{m:.4f}" for m in hloop_dev_ms)
+            + f" (median {hmed:.4f}, {hmed / max(hcycles, 1):.4f} ms per cycle)")
+        log(f"phase halo: fused warm solve under the profiler {fused_prof_ms:.2f} ms "
+            f"(the trace holds {fused_halo_events} halo_spmv events for the "
+            f"{launches['halo_spmv'] // max(hrun0, 1) * hcycles} the card ran): "
             f"{fused_msg}")
         log(f"phase halo: traced warm solve under the profiler {traced_ms:.2f} ms: "
             f"{trace_msg}")
@@ -1536,23 +1680,30 @@ def main():
         fused = []
         for _ in range(2):          # cold (captures the reduced cycle), warm
             xf, iters_f, _, _ = mq.solve(B, Y, mode="fused")
-            fused.append((mq.ctx.timing["cycles"], mq.ctx.dispatched))
+            t = mq.ctx.timing
+            fused.append((t["cycles"], mq.ctx.dispatched, int(t["host_reads"]),
+                          int(t["graph_launches"])))
+            same_f = bool(np.array_equal(xf, x)) and iters_f == iters
         mq_graph = dict(mq.ctx.timing)
+        (mq_loop,) = mq.ctx._fused.values()
         launched = counts.read()
         u = mq.unknown
         r = mq.A_uu @ x[u] - (B[u] - mq.A_uk @ Y)
         Muu = M[u][:, u]
         b_u = B[u] - mq.A_uk @ Y
         res = float(np.sqrt((r @ (Muu @ r)) / (b_u @ (Muu @ b_u))))
-        same = bool(np.array_equal(xf, x)) and iters_f == iters
+        same = bool(np.array_equal(xf, x)) and iters_f == iters and same_f
+        loop_ok = ([f[2:] for f in fused] == [(2, 1), (1, 1)]
+                   and (mq_loop.graph.captures, mq_loop.graph.builds) == (1, 1))
         ok = (np.isfinite(x).all() and np.array_equal(x[known], Y)
-              and res <= 1e-4 and launched["sliced_spmv"] > 0 and same
-              and mq_graph["graph_captures"] == 1
+              and res <= 1e-4 and launched["sliced_spmv"] > 0 and same and loop_ok
               and launched["sliced_diag_spmv"] > 0 and launched["diag_spmv"] == 0)
         log(f"phase minquad: n={n} known {known.size} dof={mq.ctx.hierarchy.dof} "
             f"{layouts(mq.ctx)} precompute {t_pre:.2f} s cycles {iters} traced "
             f"{traced_ms:.2f} ms, fused cold / warm "
-            f"{fused[0][0]:.2f} / {fused[1][0]:.2f} ms ({fused[1][1]} cycles run, "
+            f"{fused[0][0]:.2f} / {fused[1][0]:.2f} ms ({fused[1][1]} cycles run, host "
+            f"reads / graph launches {[f[2:] for f in fused]}, one capture and one "
+            f"WHILE graph {loop_ok}, built in {mq_graph['graph_build_ms']:.2f} ms, "
             f"graph pool {mq_graph['graph_pool_mib']:.1f} MiB), fused x == traced x "
             f"{same}; residual(host f64, reduced, "
             f"criterion 2) {res:.3e} device {res_dev:.3e} x[known]==Y "
@@ -1591,14 +1742,20 @@ def main():
             x_t = plain_solve(lhs_t, rhs_t, *args, **kw)
             seen["traced"] = dict(fs.solver_timing)
             # the same system in mode="fused" on the context update_lhs has
-            # just refreshed: its graph is captured anew
+            # just refreshed: its graph is captured and built anew (cold),
+            # then once more (warm)
             x_f = plain_solve(lhs_t, rhs_t, *args, **{**kw, "mode": "fused"})
             seen["fused"] = dict(fs.solver_timing)
-            seen.update(lhs=lhs_t, rhs=rhs_t, x=x_t, x_fused=x_f)
+            x_w = plain_solve(lhs_t, rhs_t, *args, **{**kw, "mode": "fused"})
+            seen["warm"] = dict(fs.solver_timing)
+            torch.cuda.synchronize()
+            seen["reserved"] = torch.cuda.memory_reserved() / 2**20
+            seen.update(lhs=lhs_t, rhs=rhs_t, x=x_t, x_fused=x_f, x_warm=x_w)
             return x_t
 
         fs.solve = recording_solve
         contexts = set()
+        reserved = []
         ok = True
         for step in range(3):
             counts.reset()
@@ -1606,11 +1763,18 @@ def main():
             launched = counts.read()
             res = fs.residual(seen["lhs"], seen["rhs"], seen["x"])
             contexts.update(id(c) for c in fs._contexts.values())
-            tr, fu = seen["traced"], seen["fused"]
+            tr, fu, wa = seen["traced"], seen["fused"], seen["warm"]
+            reserved.append(seen["reserved"])
             same = (bool(np.array_equal(seen["x_fused"], seen["x"]))
-                    and fu["iterations"] == tr["iterations"])
-            step_ok = (np.isfinite(Vt).all() and res <= 1e-4 and same
-                       and fu["graph_captures"] == 1
+                    and bool(np.array_equal(seen["x_warm"], seen["x"]))
+                    and fu["iterations"] == tr["iterations"] == wa["iterations"])
+            loop_ok = ((fu["host_reads"], fu["graph_launches"]) == (2, 1)
+                       and (wa["host_reads"], wa["graph_launches"]) == (1, 1)
+                       and fu["graph_captures"] == wa["graph_captures"] == 1)
+            # each step's update_lhs hands the last step's graph pool back
+            flat = step == 0 or reserved[-1] - reserved[-2] < fu["graph_pool_mib"]
+            step_ok = (np.isfinite(Vt).all() and res <= 1e-4 and same and loop_ok
+                       and flat
                        and len(fs._contexts) == 1 and len(contexts) == 1
                        and launched["sliced_spmv"] > 0
                        and launched["sliced_diag_spmv"] > 0
@@ -1620,10 +1784,14 @@ def main():
             log(f"phase flow: step {step} cycles "
                 f"{int(tr['iterations'])} {what} "
                 f"{seen['context_s'] * 1000:.1f} ms solve traced "
-                f"{tr['cycles']:.2f} ms, fused {fu['cycles']:.2f} ms (captured anew, "
-                f"{fu['graph_capture_ms']:.1f} ms; graph pool "
-                f"{fu['graph_pool_mib']:.1f} MiB at d=3 f64), fused x == traced x "
-                f"{same}; residual(host f64) {res:.3e} "
+                f"{tr['cycles']:.2f} ms, fused cold {fu['cycles']:.2f} ms (captured "
+                f"anew, {fu['graph_capture_ms']:.1f} ms, WHILE graph built in "
+                f"{fu['graph_build_ms']:.2f} ms; graph pool {fu['graph_pool_mib']:.1f} MiB "
+                f"at d=3 f64; host reads / graph launches cold "
+                f"{int(fu['host_reads'])} / {int(fu['graph_launches'])}, warm "
+                f"{int(wa['host_reads'])} / {int(wa['graph_launches'])}), fused warm "
+                f"{wa['cycles']:.2f} ms, fused x == traced x {same}; reserved "
+                f"{seen['reserved']:.0f} MiB; residual(host f64) {res:.3e} "
                 f"contexts {len(fs._contexts)} launches {launched} "
                 f"{'ok' if step_ok else 'FAIL'}")
         fs.solve = plain_solve
@@ -1845,6 +2013,14 @@ def main():
          "library_ms": kinfo[name]["library_ms"]}
         for name, (src, replaces) in sources.items()
     ]
+    # The loop-control kernel of the WHILE graph (csrc/graph_loop.cu): the
+    # device side of the JAX while_loop, no port of a TPU kernel; its
+    # launches, the graph's and its bodies over phase poisson's fused solves.
+    log(json.dumps({"loop": {
+        "name": "loop_control_kernel", "route": "cuda",
+        "source": "gravo_mg_tpu_torch/csrc/graph_loop.cu",
+        "replaces": "jax.lax.while_loop, gravo_mg_tpu/solver/multigrid.py:206",
+        **loop_info}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

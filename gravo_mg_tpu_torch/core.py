@@ -243,9 +243,12 @@ class MultigridSolver:
         multigrid_solver.cpp:1367-1451).  Returns x as a numpy array.
         ``mode="traced"`` steps the cycles from the host and records a
         real time per cycle in ``convergence``; ``mode="fused"`` runs the
-        JAX package's device loop, on the card one masked cycle captured
-        as a CUDA graph and replayed, with synthetic timestamps
-        (``MultigridSolveContext.solve``).
+        JAX package's device loop, on the card the captured cycle under a
+        conditional WHILE node (one graph launch and one host wait per
+        warm solve), with synthetic timestamps
+        (``MultigridSolveContext.solve``); ``solver_timing`` then holds
+        ``host_reads``, ``graph_launches``, ``graph_captures``,
+        ``graph_capture_ms``, ``graph_build_ms`` and ``graph_pool_mib``.
         """
         if not sp.issparse(lhs):
             lhs = sp.csr_matrix(lhs)

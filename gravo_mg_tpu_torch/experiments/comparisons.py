@@ -132,12 +132,17 @@ def preprocess(V, args, F=None):
 
 def solve_cold_warm(solver, lhs, rhs, mode):
     """Solve twice on one solver; returns the first (cold) solve's timing
-    with the second's device-loop ms as ``warm_cycles``, and the first's
-    convergence."""
+    with the second's device-loop ms as ``warm_cycles`` (and, in fused
+    mode, its host reads and graph launches as ``warm_host_reads`` and
+    ``warm_graph_launches``), and the first's convergence."""
     solver.solve(lhs, rhs, mode=mode)
     timing, convergence = dict(solver.solver_timing), list(solver.convergence)
     solver.solve(lhs, rhs, mode=mode)
-    timing["warm_cycles"] = solver.solver_timing["cycles"]
+    warm = solver.solver_timing
+    timing["warm_cycles"] = warm["cycles"]
+    for key in ("host_reads", "graph_launches"):
+        if key in warm:
+            timing["warm_" + key] = warm[key]
     return timing, convergence
 
 

@@ -3,9 +3,11 @@
 nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
 in parallel) into one shared library with a plain C interface, ``gravo_mg_tpu_torch/_build/libgravomg_cuda.so``,
 at first CUDA use and again whenever a ``.cu`` or ``.cuh`` source is newer
-than the library.  The library is loaded with ctypes: every pointer and
-the stream go over as ``c_void_p``, sizes as ``c_int64``, and each entry
-point returns ``cudaGetLastError()``, which :func:`check` turns into an
+than the library: the SpMV kernels, and the fused loop's WHILE graph
+(``graph_loop.cu``).  The library is loaded with ctypes: every pointer,
+graph handle and the stream go over as ``c_void_p``, sizes as
+``c_int64``, and each entry point returns ``cudaGetLastError()`` or the
+error of the call that failed, which :func:`check` turns into an
 exception.  Nothing here runs at import time, so the package imports on
 machines without nvcc or a GPU.
 """
@@ -30,7 +32,13 @@ _DIAG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
 _SLICED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 _SLICED_DIAG_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
 _HALO_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+_P = ctypes.c_void_p
 _SIGNATURES = {
+    "gravomg_graph_node_types": [_P, ctypes.POINTER(ctypes.c_int64)],
+    "gravomg_graph_loop_create": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                                  ctypes.POINTER(ctypes.c_int64)],
+    "gravomg_graph_loop_launch": [_P, _P],
+    "gravomg_graph_loop_destroy": [_P, _P],
     "gravomg_halo_spmv_f32": _HALO_ARGS,
     "gravomg_halo_spmv_f64": _HALO_ARGS,
     "gravomg_sliced_diag_spmv_f32": _SLICED_DIAG_ARGS,

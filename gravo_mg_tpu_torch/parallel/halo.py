@@ -33,11 +33,12 @@ operator, both transfers and the mass matrix are block-partitioned over
   ``shard_map``-wrapped ``while_loop`` by default: the single-device
   :class:`~gravo_mg_tpu_torch.solver.multigrid.FusedLoop` over the
   partitioned levels, the coarse solve and the all-reduced residual, so
-  on the card one masked halo cycle, its NCCL collectives and
-  point-to-point transfers included, is captured once as a CUDA graph and
-  replayed.  Every rank reads the same all-reduced stop flag, so every
-  rank replays the same number of times.  ``mode="traced"`` steps the
-  cycles from the host.
+  on the card one halo cycle, its NCCL collectives and point-to-point
+  transfers included, is captured once as a CUDA graph and run under a
+  conditional WHILE node: one launch and one host wait per solve.  Every
+  rank's node reads the same all-reduced stop flag, so every rank runs
+  the same number of cycles and no collective is left unmatched.
+  ``mode="traced"`` steps the cycles from the host.
 
 The local vector of a level is this rank's partitions laid end to end,
 each padded from ``nloc`` rows to ``stride`` rows (a multiple of 1024), so
@@ -63,6 +64,8 @@ from ..solver.multigrid import (
     _full_fp32_matmul,
     cycle_step,
     deflation_alpha,
+    loop_timing,
+    release_loops,
 )
 from ..sparse import (
     ShuffleTransfer,
@@ -556,7 +559,7 @@ class HaloContext:
         self._coarse_op = (pad_identity(Ainv), pad_identity(Ad))
         self._fused: dict = {}
         self._graph_pool = None
-        self.dispatched = 0    # cycles the last solve ran, masked ones included
+        self.dispatched = 0    # cycles the last solve ran
         self.timing = {"partition_build_s": time.perf_counter() - t0}
 
     # ---- layout helpers --------------------------------------------------
@@ -626,9 +629,7 @@ class HaloContext:
     def release_graphs(self) -> None:
         """Drop the fused solves' loops and graphs, and so their memory
         pool (as ``MultigridSolveContext.release_graphs``)."""
-        for loop in self._fused.values():
-            loop.release()
-        self._fused.clear()
+        release_loops(self._fused, self.mesh.device)
         self._graph_pool = None
 
     def _fused_loop(self, cols, criteria: int, max_iter: int) -> FusedLoop:
@@ -650,16 +651,17 @@ class HaloContext:
         ``rhs`` is the full ``(n,)`` or ``(n, d)`` right-hand side on every
         rank; the criterion is the max over columns, all-reduced, so every
         rank stops after the same cycle.  ``mode="fused"`` is the JAX
-        package's device loop (:class:`FusedLoop`): on the card one masked
-        halo cycle, captured once per ``(columns, criteria, max_iter)``,
-        replayed ``CYCLES_PER_READ`` times per host read of the stop flag;
-        a capture or replay that fails raises.  ``mode="traced"`` is a host
-        loop that reads the residual after every cycle (no lookahead),
-        with honest per-cycle times.  Both return the first iterate that
-        meets tol: ``(x, iters, res)`` with the full solution on every
-        rank.  ``timing`` holds ``cycles_ms`` and, after a fused solve,
-        ``host_reads``, ``graph_replays``, ``graph_captures``,
-        ``graph_capture_ms`` and ``graph_pool_mib``.
+        package's device loop (:class:`FusedLoop`): on the card one halo
+        cycle, captured once per ``(columns, criteria, max_iter)``, runs
+        under a conditional WHILE node, one graph launch and one host wait
+        per warm solve; a capture, build or launch that fails raises.
+        ``mode="traced"`` is a host loop that reads the residual after
+        every cycle (no lookahead), with honest per-cycle times.  Both
+        return the first iterate that meets tol: ``(x, iters, res)`` with
+        the full solution on every rank.  ``timing`` holds ``cycles_ms``
+        and, after a fused solve, ``host_reads``, ``graph_launches``,
+        ``graph_captures``, ``graph_capture_ms``, ``graph_build_ms`` and
+        ``graph_pool_mib``.
         """
         if mode not in ("traced", "fused"):
             raise ValueError(f"unknown solve mode {mode!r}")
@@ -693,13 +695,9 @@ class HaloContext:
         t0 = time.perf_counter()
         if mode == "fused":
             loop = self._fused_loop(None if squeeze else d, criteria, max_iter)
-            x, iters, res, _, self.dispatched, reads, replays = loop.run(
-                b, x, den, tol)
-            g = loop.graph
-            self.timing.update(
-                host_reads=float(reads), graph_replays=float(replays),
-                graph_captures=float(g.captures), graph_capture_ms=g.capture_ms,
-                graph_pool_mib=g.pool_mib)
+            x, iters, res, _, reads, launches = loop.run(b, x, den, tol)
+            self.dispatched = iters
+            self.timing.update(loop_timing(loop, reads, launches))
         else:
             iters, res = 0, float("inf")
             while res > tol and iters < max_iter:

@@ -34,10 +34,10 @@ Runbook (N processes, e.g. ``torchrun --nproc-per-node N script.py``)::
     x, iters, res = hctx.solve(rhs, mode="traced")   # host loop, per-cycle times
 
 Each rank passes the same full ``rhs``; every rank gets the full solution.
-``mode="fused"`` (the default) captures one masked halo cycle, its NCCL
+``mode="fused"`` (the default) captures one halo cycle, its NCCL
 collectives and point-to-point transfers included, as a CUDA graph on the
-first solve; its first cycle runs eagerly and so creates every NCCL
-communicator before the capture.  Leave ``TORCH_NCCL_BLOCKING_WAIT`` unset:
+first solve and runs it under a conditional WHILE node; its first cycle
+runs eagerly and so creates every NCCL communicator before the capture.  Leave ``TORCH_NCCL_BLOCKING_WAIT`` unset:
 a captured ``wait`` may only make the stream wait.
 """
 

@@ -132,8 +132,8 @@ class MinQuadWithFixedMG:
         ``min_quad_with_fixed_mg_solve`` (:81-143): reduced RHS
         ``B_u - A_uk Y``, cycles to tolerance.  ``mode`` is the reduced
         context's (``MultigridSolveContext.solve``): ``"traced"`` steps
-        the cycles from the host, ``"fused"`` replays one captured cycle
-        on the card.
+        the cycles from the host, ``"fused"`` runs the captured cycle on
+        the card under a conditional WHILE node, one launch per solve.
         """
         tol = self.tol if tol is None else float(tol)
         max_iter = self.max_iter if max_iter is None else int(max_iter)

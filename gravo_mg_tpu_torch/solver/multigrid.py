@@ -12,10 +12,10 @@ Counterpart of ``gravo_mg_tpu/solver/multigrid.py`` (the reference's
   coarse inverse apply with one refinement step;
 * the iterate-to-tolerance loop either runs on the host, one cycle ahead
   of the residual it waits for (``mode="traced"``), or is the JAX
-  package's ``fused_solve``: one masked cycle captured as a CUDA graph
-  and replayed, with the stop flag read once per ``CYCLES_PER_READ``
-  cycles (``mode="fused"``, :class:`FusedLoop`).  Both return the first
-  iterate that meets tol.
+  package's ``fused_solve``: its ``while_loop`` as one CUDA graph, a
+  conditional WHILE node around the captured cycle and stop test, one
+  launch and one host wait per solve (``mode="fused"``,
+  :class:`FusedLoop`).  Both return the first iterate that meets tol.
 
 Compute runs in the context's dtype (f32 by default); the exact
 constant-mode deflation runs in f64 on the device.
@@ -175,17 +175,10 @@ def cycle_step(cfg: SolverConfig, levels, coarse, b, x):
     return _cycle(cfg, levels, coarse, b, x, 0, cfg.cycle_type)
 
 
-# The fused loop's host reads the card's stop flag once per CYCLES_PER_READ
-# cycles; up to CYCLES_PER_READ - 1 masked cycles run past the stop and
-# change nothing.  The value is the fastest of 1, 2 and 4 in the 1M
-# Poisson solve on an H100 (PERF.md).
-CYCLES_PER_READ = 1
-
-
 @dataclasses.dataclass
 class _LoopState:
     """The fused loop's static buffers: the captured cycle reads and
-    writes these addresses on every replay."""
+    writes these addresses in every body of the loop."""
 
     b: torch.Tensor
     x: torch.Tensor
@@ -198,30 +191,29 @@ class _LoopState:
     more: torch.Tensor     # 0-d bool: the loop's cond after the last cycle
 
 
-def _masked_cycle(cfg, levels, coarse, numerator, max_iter, st):
-    """One step of the JAX ``fused_solve`` loop with masking in place of
-    its ``cond``: the cycle always runs, and changes nothing where the
-    loop would already have stopped.  ``numerator(b, x)`` gives the
-    per-column residual numerators (:func:`residual.residual_numerator`
-    on one device, the all-reduced one on a halo mesh).  Nothing here
-    reads the card from the host, so the step can be captured."""
-    active = (st.res > st.tol) & (st.it < max_iter)
+def _loop_body(cfg, levels, coarse, numerator, max_iter, st):
+    """The body of the JAX ``fused_solve`` loop, in place on the loop's
+    buffers, and its ``cond`` written to ``st.more`` for the WHILE node.
+    ``numerator(b, x)`` gives the per-column residual numerators
+    (:func:`residual.residual_numerator` on one device, the all-reduced
+    one on a halo mesh).  Nothing here reads the card from the host, so
+    the step can be captured."""
     x_new = cycle_step(cfg, levels, coarse, st.b, st.x)
     r_new = torch.max(numerator(st.b, x_new) / st.den)
-    st.x.copy_(torch.where(active, x_new, st.x))
-    st.trace.copy_(torch.where(active & (st.slots == st.it), r_new, st.trace))
-    st.res.copy_(torch.where(active, r_new, st.res))
-    st.it.add_(active.long())
+    st.x.copy_(x_new)
+    st.trace.copy_(torch.where(st.slots == st.it, r_new, st.trace))
+    st.res.copy_(r_new)
+    st.it.add_(1)
     torch.logical_and(st.res > st.tol, st.it < max_iter, out=st.more)
 
 
 class FusedLoop:
     """The JAX package's ``fused_solve`` (gravo_mg_tpu/solver/multigrid.py)
-    on the card: its ``while_loop`` body as one masked cycle
-    (:func:`_masked_cycle`), captured once as a CUDA graph by
-    :class:`device_loop.StepGraph` and replayed ``CYCLES_PER_READ`` times
-    per host read of the stop flag.  On the CPU the same step runs
-    eagerly at the same cadence.
+    on the card: its ``while_loop`` body (:func:`_loop_body`) captured
+    once as a CUDA graph and run by :meth:`device_loop.StepGraph.loop`
+    under a conditional WHILE node that reads the body's stop flag, so a
+    warm solve is one graph launch and one host wait.  On the CPU the
+    same body runs eagerly while the host reads the flag.
 
     One loop serves one (right-hand-side shape, criteria, max_iter) of
     one set of operators; ``tol`` is a value in a buffer.  The result is
@@ -242,9 +234,9 @@ class FusedLoop:
 
     def run(self, b, x0, den, tol: float):
         """Copy ``b``, ``x0`` and ``den`` into the static buffers and loop
-        to ``tol``.  Returns ``(x, iters, res, trace, cycles run, host
-        reads, graph replays)``, with ``x`` and ``trace`` copied out of the
-        buffers (the next run overwrites them)."""
+        to ``tol``.  Returns ``(x, iters, res, trace, host reads, graph
+        launches)``, with ``x`` and ``trace`` copied out of the buffers
+        (the next run overwrites them)."""
         st = self.state
         if st is None:
             it = torch.zeros((), dtype=torch.int64, device=b.device)
@@ -256,7 +248,7 @@ class FusedLoop:
                 slots=torch.arange(self.max_iter, device=b.device),
                 more=torch.zeros((), dtype=torch.bool, device=b.device))
             self.graph = StepGraph(
-                functools.partial(_masked_cycle, *self._step_args, st),
+                functools.partial(_loop_body, *self._step_args, st),
                 b.device, self.pool)
         else:
             st.b.copy_(b)
@@ -266,21 +258,42 @@ class FusedLoop:
         st.res.fill_(math.inf)
         st.it.zero_()
         st.trace.fill_(math.inf)
-        cycles = reads = 0
-        replays = self.graph.replays
-        more = self.max_iter > 0 and math.inf > tol
-        while more:
-            self.graph.run(CYCLES_PER_READ)
-            cycles += CYCLES_PER_READ
-            reads += 1
-            more = bool(st.more)
-        iters = int(st.it)
+        launches = self.graph.launches
+        iters, reads = 0, 1
+        # the cond before the first body, known on the host
+        if self.max_iter > 0 and math.inf > tol:
+            st.more.fill_(True)
+            iters, reads = self.graph.loop(st.more, st.it)
         return (st.x.clone(), iters, float(st.res), st.trace[:iters].tolist(),
-                cycles, reads, self.graph.replays - replays)
+                reads, self.graph.launches - launches)
 
     def release(self) -> None:
         if self.graph is not None:
             self.graph.release()
+
+
+def release_loops(loops: dict, device: torch.device) -> None:
+    """Free the WHILE graphs and captures of ``loops`` (a context's cache
+    of :class:`FusedLoop`, emptied here), then hand their memory pool back
+    to the device: PyTorch keeps a released graph pool reserved until
+    ``empty_cache``, so a context that recaptures after every LHS update
+    would otherwise reserve one more pool each time."""
+    for loop in loops.values():
+        loop.release()
+    released = bool(loops)
+    loops.clear()
+    if released and device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def loop_timing(loop: FusedLoop, reads: int, launches: int) -> dict:
+    """A fused solve's timing keys: host reads and WHILE-graph launches of
+    this solve; captures, capture and build ms and graph pool MiB of its
+    loop."""
+    g = loop.graph
+    return dict(host_reads=float(reads), graph_launches=float(launches),
+                graph_captures=float(g.captures), graph_capture_ms=g.capture_ms,
+                graph_build_ms=g.build_ms, graph_pool_mib=g.pool_mib)
 
 
 def _numerator(levels, M, Minv_diag, criteria: int):
@@ -431,8 +444,9 @@ def coarse_inverse_host(A_coarse_csr, null_fix: bool):
 
 
 # timing keys only a fused solve sets
-_FUSED_TIMING = ("trace_timestamps_synthetic", "host_reads", "graph_replays",
-                 "graph_captures", "graph_capture_ms", "graph_pool_mib")
+_FUSED_TIMING = ("trace_timestamps_synthetic", "host_reads", "graph_launches",
+                 "graph_captures", "graph_capture_ms", "graph_build_ms",
+                 "graph_pool_mib")
 
 
 class MultigridSolveContext:
@@ -685,9 +699,7 @@ class MultigridSolveContext:
         lam_max and the Chebyshev coefficients, which are Python floats:
         kept across an LHS update it would solve the old system without
         any error."""
-        for loop in self._fused.values():
-            loop.release()
-        self._fused.clear()
+        release_loops(self._fused, self.device)
         self._graph_pool = None
 
     def _fused_loop(self, cols, criteria: int, max_iter: int) -> FusedLoop:
@@ -725,12 +737,12 @@ class MultigridSolveContext:
         discarded) and records real (elapsed_ms, residual) pairs like the
         reference (multigrid_solver.cpp:1408-1443).  ``mode="fused"`` is
         the JAX package's device loop (:class:`FusedLoop`): on the card
-        one masked cycle, captured once per (columns, criteria, max_iter)
-        as a CUDA graph, is replayed ``CYCLES_PER_READ`` times per host
-        read of the stop flag; its timestamps are synthetic (the elapsed
+        the cycle, captured once per (columns, criteria, max_iter), runs
+        under a conditional WHILE node, one graph launch and one host
+        wait per warm solve; its timestamps are synthetic (the elapsed
         time spread uniformly, ``timing["trace_timestamps_synthetic"]``).
         Both return the first iterate meeting tol; ``dispatched`` counts
-        the cycles the card ran, discarded or masked ones included.
+        the cycles the card ran, a discarded lookahead cycle included.
 
         Before iterating, the constant near-null component is removed
         exactly: ``x = y + alpha*1`` with ``alpha = sum(b) / sum(A @ 1)``
@@ -787,16 +799,13 @@ class MultigridSolveContext:
         elif mode == "fused":
             loop = self._fused_loop(None if squeeze else rhs2.shape[1],
                                     criteria, max_iter)
-            x, iters, res, trace, dispatched, reads, replays = loop.run(
-                b, x, den, tol)
+            x, iters, res, trace, reads, launches = loop.run(b, x, den, tol)
+            dispatched = iters
             elapsed = (time.perf_counter() - t0) * 1000
             convergence = [(elapsed * (i + 1) / max(iters, 1), r)
                            for i, r in enumerate(trace)]
-            g = loop.graph
-            self.timing.update(
-                trace_timestamps_synthetic=1.0, host_reads=float(reads),
-                graph_replays=float(replays), graph_captures=float(g.captures),
-                graph_capture_ms=g.capture_ms, graph_pool_mib=g.pool_mib)
+            self.timing.update(trace_timestamps_synthetic=1.0,
+                               **loop_timing(loop, reads, launches))
         else:
             A = self.levels[0].A
             iters = 0
@@ -829,7 +838,7 @@ class MultigridSolveContext:
         elapsed = (time.perf_counter() - t0) * 1000
         self.timing["cycles"] = elapsed
         self.timing["iterations"] = float(iters)
-        # cycles the device ran, the discarded lookahead or masked ones included
+        # cycles the device ran, the traced loop's discarded lookahead included
         self.dispatched = dispatched
         self.timing["residue"] = res
         self.timing["solver_total"] = elapsed + self.timing.get("reduction", 0)

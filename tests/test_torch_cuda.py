@@ -12,11 +12,12 @@ torch's reduction order).  Solves go through sliced_spmv (and
 sliced_diag_spmv where a level past the diagonal-run gate is SlicedDiag),
 the halo path's boundary rows through halo_spmv; shuffle_spmv and
 diag_spmv run on the JAX package's layouts only.  ``mode="fused"`` (the
-masked cycle captured as a CUDA graph) and CG's graphed 32-iteration unit
-are held bitwise equal to the host loop and the eager unit, and so is the
-halo solver's captured cycle (``HaloContext.solve``) in one process, on a
-one-rank NCCL group and, where two GPUs are present, across two NCCL
-ranks, whose workers run this file as a script:
+captured cycle under a conditional WHILE node, one graph launch and one
+host wait per warm solve) and CG's graphed 32-iteration unit are held
+bitwise equal to the host loop and the eager unit, and so is the halo
+solver's loop (``HaloContext.solve``) in one process, on a one-rank NCCL
+group and, where two GPUs are present, across two NCCL ranks, whose
+workers run this file as a script:
 
     python tests/test_torch_cuda.py nccl-halo-worker <rank> <world> <init file>
 """
@@ -545,7 +546,7 @@ def test_device_hierarchy_on_cuda_matches_cpu(cuda, torus_65k, kind):
         assert np.abs(a.stats - b.stats).max() <= 1e-3 * n
 
 
-# ---- mode="fused": the masked cycle captured as a CUDA graph ---------------
+# ---- mode="fused": the captured cycle under a conditional WHILE node -------
 
 @pytest.fixture(scope="module")
 def fused_torus():
@@ -563,12 +564,14 @@ def _fused_solver(V, M, neigh, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 1), (torch.float32, 3),
-                                     (torch.float64, 3)])
+                                     (torch.float64, 1), (torch.float64, 3)])
 def test_fused_graph_matches_traced_bitwise(cuda, fused_torus, dtype, d):
-    """The same kernels in the same order: the graph's iterate, cycle count
-    and trace equal the host loop's bit for bit.  One capture serves
-    repeated solves; every cycle after the first solve's first is a
-    replay; sliced_diag_spmv counts 10 launches per cycle the card ran."""
+    """The same kernels in the same order: the WHILE graph's iterate, cycle
+    count and trace equal the host loop's bit for bit.  One capture and
+    one build serve repeated solves; the cold solve runs its first cycle
+    eagerly and reads the flag once, then launches the graph; a warm solve
+    is one launch and one host wait; sliced_diag_spmv counts 10 launches
+    per cycle the card ran."""
     V, S, M, neigh, noise = fused_torus
     lhs = (1e-6 * M + S).tocsr()
     rhs = M @ (noise[:, 0] if d == 1 else noise)
@@ -583,12 +586,37 @@ def test_fused_graph_matches_traced_bitwise(cuda, fused_torus, dtype, d):
         assert np.array_equal(fused[0], traced[0])
         assert [r for _, r in fused[3]] == [r for _, r in traced[3]]
         t = ctx.timing
-        assert t["graph_captures"] == 1 and t["host_reads"] >= 1
-        assert t["graph_replays"] == ctx.dispatched - (solve == 0)
+        assert t["graph_captures"] == 1 and t["graph_launches"] == 1
+        assert t["host_reads"] == (2 if solve == 0 else 1)
+        assert ctx.dispatched == fused[1] > 1
         assert sdmod.launches == 10 * ctx.dispatched and slmod.launches > 0
         assert dmod.launches == smod.launches == 0
     assert solver.residual(lhs, rhs, fused[0]) <= 1e-4
-    assert len(ctx._fused) == 1
+    (loop,) = ctx._fused.values()
+    assert loop.graph.launches == 3 and loop.graph.build_ms > 0
+    assert loop.graph.step_nodes["kernel"] > 0
+
+
+@pytest.mark.cuda
+def test_fused_graph_stops_as_traced(cuda, fused_torus):
+    """A warm solve whose first cycle meets tol runs one body; tol 0 with
+    max_iter 3 runs 3 bodies and keeps 3 trace entries; both one launch,
+    one host wait, and equal to the host loop."""
+    V, S, M, neigh, noise = fused_torus
+    solver = _fused_solver(V, M, neigh, torch.float32)
+    ctx = solver._context((M + 1e-3 * S).tocsr())
+    rhs = M @ noise[:, 0]
+    for kw, want in ((dict(tol=0.5), 1), (dict(tol=0.0, max_iter=3), 3)):
+        traced = ctx.solve(rhs, mode="traced", **kw)
+        ctx.solve(rhs, mode="fused", tol=1e-6, **{k: v for k, v in kw.items()
+                                                   if k != "tol"})  # cold
+        _reset_launches()
+        fused = ctx.solve(rhs, mode="fused", **kw)
+        assert fused[1] == traced[1] == want and len(fused[3]) == want
+        assert fused[2] == traced[2] and np.array_equal(fused[0], traced[0])
+        t = ctx.timing
+        assert t["graph_launches"] == 1 and t["host_reads"] == 1
+        assert ctx.dispatched == want and sdmod.launches == 10 * want
 
 
 @pytest.mark.cuda
@@ -602,13 +630,37 @@ def test_fused_graph_recaptured_after_update_lhs(cuda, fused_torus):
     loop = next(iter(ctx._fused.values()))
     lhs2 = (M + 1e-2 * S).tocsr()
     assert solver._context(lhs2) is ctx and ctx._fused == {}   # update_lhs
-    assert loop.graph.graph is None                             # released
+    assert loop.graph.graph is None and loop.graph._loop is None   # released
     traced = ctx.solve(rhs, mode="traced")
     fused = ctx.solve(rhs, mode="fused")
     assert np.array_equal(fused[0], traced[0]) and fused[1] == traced[1]
-    assert ctx.timing["graph_captures"] == 1
+    assert ctx.timing["graph_captures"] == 1 and ctx.timing["graph_launches"] == 1
     assert solver.residual(lhs2, rhs, fused[0]) <= 1e-4
     assert np.linalg.norm(fused[0] - x_old) > 1e-2 * np.linalg.norm(x_old)
+
+
+@pytest.mark.cuda
+def test_fused_graph_memory_flat_over_update_lhs(cuda, fused_torus):
+    """Ten rounds of ``update_lhs`` and a fused solve: each round captures
+    and builds anew, and the device memory reserved does not grow by the
+    graph pool each round (the released pools go back to the device)."""
+    V, S, M, neigh, noise = fused_torus
+    solver = _fused_solver(V, M, neigh, torch.float32)
+    rhs = M @ noise[:, 0]
+    reserved, pools = [], []
+    for k in range(10):
+        lhs = (M + (1e-3 + 1e-3 * k) * S).tocsr()
+        ctx = solver._context(lhs)
+        traced = ctx.solve(rhs, mode="traced")
+        fused = ctx.solve(rhs, mode="fused")
+        assert np.array_equal(fused[0], traced[0]) and fused[1] == traced[1]
+        assert ctx.timing["graph_captures"] == 1
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        pools.append(ctx.timing["graph_pool_mib"] * 2**20)
+    assert len(solver._contexts) == 1 and min(pools) > 0
+    # a pool kept per round would add 8 pools from round 2 to round 10
+    assert reserved[-1] - reserved[1] < 2 * max(pools), (reserved, pools)
 
 
 @pytest.mark.cuda
@@ -650,7 +702,7 @@ def test_cg_graph_matches_eager_unit(cuda, fused_torus, poisson, max_iter,
     assert np.array_equal(x_cached, x_eager)
 
 
-# ---- the halo solver's device loop: one masked halo cycle as a graph --------
+# ---- the halo solver's device loop: the halo cycle under the WHILE node ----
 
 def _halo_solver(V, M, neigh):
     # the gate of 16 row groups: the stacked interiors of A0 and A1 (4
@@ -661,9 +713,10 @@ def _halo_solver(V, M, neigh):
 
 def _halo_fused_against_traced(hctx, rhs, solves=3):
     """``solves`` fused solves of ``rhs`` against one traced solve: the
-    same iterate bit for bit, cycles and residual; one capture in all;
-    every cycle after the first solve's first is a replay; each wrapper's
-    launches per cycle the card ran equal the host loop's per cycle."""
+    same iterate bit for bit, cycles and residual; one capture and one
+    WHILE graph in all; one launch per solve, one host wait per warm
+    solve (two on the cold one); each wrapper's launches per cycle the
+    card ran equal the host loop's per cycle."""
     _reset_launches()
     traced = hctx.solve(rhs, tol=1e-5, max_iter=50, mode="traced")
     assert hctx.dispatched == traced[1]
@@ -676,8 +729,9 @@ def _halo_fused_against_traced(hctx, rhs, solves=3):
         assert fused[1] == traced[1] and fused[2] == traced[2]
         assert np.array_equal(fused[0], traced[0])
         t = hctx.timing
-        assert t["graph_captures"] == 1 and t["host_reads"] >= 1
-        assert t["graph_replays"] == hctx.dispatched - (solve == 0)
+        assert t["graph_captures"] == 1 and t["graph_launches"] == 1
+        assert t["host_reads"] == (2 if solve == 0 else 1)
+        assert hctx.dispatched == fused[1]
         assert ([m.launches for m in (sdmod, slmod, hmod)]
                 == [k * hctx.dispatched for k in per_cycle])
         assert dmod.launches == smod.launches == 0
@@ -701,7 +755,7 @@ def test_halo_fused_graph_matches_traced_bitwise(cuda, halo_torus, d):
     assert res <= 1e-5 and solver.residual(lhs, rhs, x) <= 2e-5
     loop = next(iter(hctx._fused.values()))
     hctx.release_graphs()
-    assert hctx._fused == {} and loop.graph.graph is None
+    assert hctx._fused == {} and loop.graph.graph is None and loop.graph._loop is None
 
 
 @pytest.mark.cuda
@@ -709,7 +763,7 @@ def test_halo_fused_graph_on_one_rank_nccl_group(cuda, halo_torus, tmp_path,
                                                  monkeypatch):
     """A one-rank NCCL group holding four partitions: the coarse solve's
     all-gather and the residual's all-reduce are NCCL calls inside the
-    captured cycle."""
+    captured cycle, which runs inside the conditional WHILE node."""
     import torch.distributed as dist
 
     from gravo_mg_tpu_torch.parallel import multihost

@@ -1,8 +1,10 @@
 """The port's device loop (``mode="fused"``) on the CPU.
 
-On the card the loop's step (one masked cycle) is captured once as a CUDA
-graph and replayed; on the CPU the same step runs eagerly at the same
-cadence of host reads, so these tests run the code the card captures.
+On the card the loop's body (one cycle, its residual and the stop test)
+is captured once as a CUDA graph and run under a conditional WHILE node
+that reads the body's stop flag; on the CPU the same body runs eagerly
+and the host reads the flag after each one, so these tests run the code
+the card captures.
 
 * Against the JAX package's ``fused_solve`` on identical level operators
   (carried over by ``convert.levels_from_reference``), V, F and W cycles
@@ -16,9 +18,10 @@ cadence of host reads, so these tests run the code the card captures.
   share of each entry.
 * Against the port's own ``traced`` loop: iterate, ``iters`` and trace
   bitwise equal (the same operations on the same buffers).
-* Stopping: ``max_iter`` reached, ``tol`` met after the first cycle, and
-  a needed cycle count that is not a multiple of ``CYCLES_PER_READ``
-  (masked cycles run past the stop and change nothing).
+* Stopping: ``max_iter`` reached, ``tol`` met after the first cycle,
+  ``max_iter = 0`` (no cycle: x0 back, as JAX's ``while_loop`` returns
+  it), and tols that need 1, 2, 3 and 5 cycles: the loop runs exactly the
+  cycles it needs, against the traced loop and the JAX ``fused_solve``.
 * The context's cache of loops is dropped by ``update_lhs``.
 * MinQuad in fused mode; CG's 32-iteration unit against the loop it
   replaced, at a ``max_iter`` that is not a multiple of 32.
@@ -126,6 +129,20 @@ def test_fused_stops_as_reference(sphere_mesh, ref_hierarchy, case):
     assert _rel(x, x_ref) <= F32_TOL
 
 
+def test_fused_max_iter_zero_returns_x0(sphere_mesh, ref_hierarchy):
+    """``max_iter = 0``: the cond fails before the first body, so no cycle
+    runs and the loop returns its initial carry, as ``lax.while_loop``
+    does (the JAX ``fused_solve`` itself cannot trace a zero-length
+    trace buffer)."""
+    pair = _Pair(sphere_mesh, ref_hierarchy, 0, 1)
+    pair.x0 = np.random.default_rng(7).standard_normal(pair.b.shape).astype(np.float32)
+    x, iters, res, trace = mg.fused_solve(
+        *pair.port_ops, torch.from_numpy(pair.b), torch.from_numpy(pair.x0),
+        torch.from_numpy(np.array(pair.den)), 1e-5, 2, 0)
+    assert iters == 0 and trace == [] and res == math.inf
+    assert np.array_equal(x.numpy(), pair.x0)
+
+
 @pytest.fixture(scope="module")
 def port_solver(sphere_mesh):
     m = sphere_mesh
@@ -156,32 +173,42 @@ def test_fused_matches_traced_bitwise(sphere_mesh, port_solver, poisson, d):
     assert ctx.timing["trace_timestamps_synthetic"] == 1.0
     stamps = [t for t, _ in fused[3]]
     assert stamps == sorted(stamps) and len(stamps) == fused[1]
-    # the CPU runs every step eagerly: nothing is captured
-    assert ctx.timing["graph_captures"] == 0 and ctx.timing["graph_replays"] == 0
+    # the CPU runs every step eagerly: nothing is captured or launched
+    assert ctx.timing["graph_captures"] == 0 and ctx.timing["graph_launches"] == 0
+    assert ctx.timing["graph_build_ms"] == 0
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
-def test_fused_returns_first_iterate_meeting_tol(sphere_mesh, port_solver, k,
-                                                 monkeypatch):
-    """With k cycles per host read the card runs k * ceil(iters / k) cycles;
-    the masked ones change neither the iterate nor the trace."""
-    monkeypatch.setattr(mg, "CYCLES_PER_READ", k)
+# tols at which the sphere's smoothing system (trace 2.7e-2, 1.0e-3, 3.9e-5,
+# 1.6e-6, 1.4e-7) needs 1, 2, 3 and 5 cycles
+TOL_FOR_CYCLES = {1: 1e-1, 2: 1e-2, 3: 1e-4, 5: 1e-6}
+
+
+@pytest.mark.parametrize("cycles", [1, 2, 3, 5])
+def test_fused_returns_first_iterate_meeting_tol(sphere_mesh, port_solver,
+                                                 ref_hierarchy, cycles):
+    """The loop runs exactly the cycles the tol needs (no masked tail):
+    iters, res and trace equal the traced loop's, the iterate bit for bit,
+    and the cycles equal the JAX ``fused_solve``'s; on the CPU the host
+    reads the flag after every cycle and the result once."""
+    tol = TOL_FOR_CYCLES[cycles]
     lhs, rhs = _system(sphere_mesh)
     ctx = port_solver._context(lhs)
-    traced, fused, _ = _both_modes(ctx, rhs, tol=1e-6)
+    traced, fused, _ = _both_modes(ctx, rhs, tol=tol)
     _assert_same(traced, fused)
-    iters = fused[1]
-    assert iters == 5                     # a multiple of none of k = 2, 3, 4
-    assert ctx.dispatched == k * math.ceil(iters / k)
-    assert ctx.timing["host_reads"] == math.ceil(iters / k)
+    assert fused[1] == cycles and ctx.dispatched == cycles
+    assert ctx.timing["host_reads"] == cycles + 1
     # the stop is where the traced loop's is: the residual before it is above tol
-    assert fused[3][-1][1] <= 1e-6 < fused[3][-2][1]
+    trace = [r for _, r in fused[3]]
+    assert trace[-1] <= tol and all(r > tol for r in trace[:-1])
+    _, it_ref, tr_ref = _Pair(sphere_mesh, ref_hierarchy, 0, 1).ref(tol, 40)
+    assert it_ref == cycles and _rel(np.asarray(trace), tr_ref) <= F32_TOL
 
 
 def test_fused_max_iter_and_met_tol_match_traced(sphere_mesh, port_solver):
     lhs, rhs = _system(sphere_mesh)
     ctx = port_solver._context(lhs)
-    for kw, want in ((dict(tol=1e-12, max_iter=3), 3), (dict(tol=0.5), 1)):
+    for kw, want in ((dict(tol=1e-12, max_iter=3), 3), (dict(tol=0.5), 1),
+                     (dict(max_iter=0), 0)):
         traced, fused, _ = _both_modes(ctx, rhs, **kw)
         _assert_same(traced, fused)
         assert fused[1] == want
@@ -243,6 +270,26 @@ def test_step_graph_runs_eagerly_on_cpu():
     g.run(2)
     g.release()
     assert len(count) == 5 and g.captures == g.replays == 0 and g.graph is None
+
+
+def test_step_graph_loop_on_cpu():
+    """``loop`` runs the step while the flag holds (the caller set it),
+    reading the flag after each step and the counter once at the end."""
+    flag = torch.ones((), dtype=torch.bool)
+    counter = torch.zeros((), dtype=torch.int64)
+    limit = [4]
+
+    def step():
+        counter.add_(1)
+        torch.lt(counter, limit[0], out=flag)
+
+    g = StepGraph(step, "cpu")
+    assert g.loop(flag, counter) == (4, 5)
+    limit[0] = 1                       # the first step stops the loop
+    flag.fill_(True)
+    counter.zero_()
+    assert g.loop(flag, counter) == (1, 2)
+    assert g.captures == g.launches == 0 and g.graph is None
 
 
 def _cg_loop_before(lhs, rhs, tol, max_iter):
