@@ -21,10 +21,16 @@ phase, counted from 0; any failure exits non-zero before the last line):
    calls), timed in turns (device time from torch.profiler, beside CUDA
    events), with the bound, every threads-per-row variant of sliced_spmv,
    and the sums over one 1M V-cycle; the SlicedDiag operators (A0, CG's
-   operator, MinQuad's finest level) through both variants of
-   sliced_diag_spmv, beside diag_spmv on A0's DiagEll (the route they
-   replaced, built here), cuSPARSE and the plain version, with bytes per
-   apply, the layout's bound and the format-neutral one; the halo
+   operator, MinQuad's finest level) through sliced_diag_spmv, beside
+   diag_spmv on A0's DiagEll (the route they replaced, built here),
+   cuSPARSE and the plain version, with bytes per apply, the layout's
+   bound and the format-neutral one; the epilogues of both kernels (a
+   Chebyshev step, first and later, and the residual on A0 and A1, the
+   prolongation's add on U0; d = 1 f32 and d = 3 f64): each launch beside
+   the kernel's plain-mode SpMV followed by the torch ops (held bitwise
+   equal to it), the bare SpMV, the plain version and, for the residual
+   and the add, cuSPARSE's addmv/addmm on the same CSR, with bytes and
+   bound (SlicedDiag: its layout's, with the format-neutral beside); the halo
    path's parts (1M over 4 partitions): the stacked A0 interior
    (sliced_diag_spmv), the stacked U0^T interior (sliced_spmv) and the
    compact halo parts of A0 and U0^T (halo_spmv), each against its plain
@@ -44,7 +50,11 @@ phase, counted from 0; any failure exits non-zero before the last line):
    solve, one capture and one WHILE graph in all, the WHILE graph's
    nodes, build ms and device ms (CUDA events around its launches), and
    one warm solve of each under torch.profiler (kernel ms per cycle run
-   by kernel, device idle share);
+   by kernel, device idle share); then the same fused solve with the
+   plain compositions patched in (each operation as the SpMV followed by
+   its torch ops), its iterate, trace and cycles held bitwise equal, the
+   two WHILE graphs' kernels, nodes, device ms and warm ms in turns (the
+   epilogues' no slower), the captured cycle at most 80 kernels;
    halo: the same system on phase poisson's context over 4 row partitions
    (``parallel.halo.HaloContext``) held by one NCCL rank on this card
    (one-rank process group, ``file://`` rendezvous): each part's layout,
@@ -101,7 +111,8 @@ line is a JSON object ``{"loop": ...}`` for the WHILE graph's
 loop-control kernel (its
 launches, the graph's launches and bodies in phase poisson, nodes, build
 and device ms); the second-to-last line is a JSON object with one entry
-per SpMV kernel (launches summed over the solve phases); the last line
+per SpMV kernel (launches summed over the solve phases, per epilogue
+too, and each epilogue's times); the last line
 is ``{"ok": true, "device": {...}}``.
 The script needs CUDA and the rest of the repository; without either it
 exits non-zero.
@@ -109,6 +120,7 @@ exits non-zero.
 
 import atexit
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -129,6 +141,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 FP64_FLOPS = 34e12
 TORUS_1M = (1024, 1024)
+# phase kernels' epilogue cases and a Chebyshev step's coefficients
+EPI_OPS = ("cheb_next", "cheb_first", "residual")
+EPI_C1, EPI_C2 = 0.3717, 0.8391
 TORUS_262K = (724, 362)
 # experiments/out/timing/noef_smoothing_all_0.001_table.csv, "Torus 262K"
 # (the reference protocol's cycle counts; printed beside ours, not a bar)
@@ -170,7 +185,9 @@ def time_in_turns(fns, order, reps=20):
     and the summed durations of the kernels, copies and fills the calls
     ran (``device``), from a torch.profiler session of its own per turn.
     A call of a few us is bound by the host's launch rate, so only the
-    device time says what its kernel costs."""
+    device time says what its kernel costs.  Every timed function runs
+    at least one device operation a call, so a session that recorded
+    fewer than one a call lost some and is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,12 +208,13 @@ def time_in_turns(fns, order, reps=20):
                 for _ in range(calls(k)):
                     fns[k]()
                 torch.cuda.synchronize()
-            busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                       if getattr(e.device_type, "name", "") == "CUDA")
-            if busy > 0:
+            ops = [e for e in prof.events()
+                   if getattr(e.device_type, "name", "") == "CUDA"]
+            busy = sum(e.time_range.end - e.time_range.start for e in ops)
+            if len(ops) >= calls(k) and busy > 0:
                 break
         else:
-            raise AssertionError(f"profiler: no device work recorded for {k}")
+            raise AssertionError(f"profiler: device work of {k} not recorded")
         device.setdefault(k, []).append(busy / 1e3 / calls(k))
     return ({k: sum(v) / len(v) for k, v in event.items()},
             {k: sum(v) / len(v) for k, v in device.items()})
@@ -243,7 +261,8 @@ def rel_err(y, ref):
 
 class Launches:
     """Per-phase kernel launch counts (reset to 0 before each phase) and
-    their sum over the solve phases."""
+    their sum over the solve phases; for the kernels with epilogues also
+    per epilogue (``launches_by_mode``)."""
 
     NAMES = ("sliced_spmv", "diag_spmv", "shuffle_spmv", "sliced_diag_spmv",
              "halo_spmv")
@@ -251,16 +270,62 @@ class Launches:
     def __init__(self, *mods):
         self.mods = dict(zip(self.NAMES, mods))
         self.total = dict.fromkeys(self.NAMES, 0)
+        self.total_by_mode = {k: dict.fromkeys(m.launches_by_mode, 0)
+                              for k, m in self.mods.items()
+                              if hasattr(m, "launches_by_mode")}
 
     def reset(self):
         for m in self.mods.values():
             m.launches = 0
+            if hasattr(m, "launches_by_mode"):
+                m.launches_by_mode.update(dict.fromkeys(m.launches_by_mode, 0))
 
     def read(self):
         got = {k: m.launches for k, m in self.mods.items()}
         for k, v in got.items():
             self.total[k] += v
+        for k, total in self.total_by_mode.items():
+            for mode, c in self.mods[k].launches_by_mode.items():
+                total[mode] += c
         return got
+
+    def by_mode(self):
+        """The current per-epilogue counts of the kernels that have them."""
+        return {k: dict(self.mods[k].launches_by_mode) for k in self.total_by_mode}
+
+
+@contextlib.contextmanager
+def plain_compositions():
+    """The cycle's operations as the kernel's plain SpMV followed by the
+    torch ops (``epilogue_plain``), in place of the epilogue launches: the
+    reference a fused solve is held against bit for bit.  Patched in here;
+    the package has no switch for it."""
+    from gravo_mg_tpu_torch import sparse
+    from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain
+    from gravo_mg_tpu_torch.solver import multigrid as mg
+    from gravo_mg_tpu_torch.solver import residual, smoothers
+
+    def cheb_step(A, dinv, b, x, d, c1, c2, keep_d=True):
+        return epilogue_plain("cheb", sparse.spmv(A, x), b=b, dinv=dinv, x=x, d=d,
+                              c1=c1, c2=c2, keep_d=keep_d)
+
+    def spmv_residual(A, x, b):
+        return epilogue_plain("residual", sparse.spmv(A, x), b=b)
+
+    def prolong_add(self, e, x):
+        return epilogue_plain("add", sparse.spmv(self.U, e), z=x)
+
+    patches = [(smoothers, "cheb_step", cheb_step), (mg, "spmv_residual", spmv_residual),
+               (residual, "spmv_residual", spmv_residual),
+               (sparse.ShuffleTransfer, "prolong_add", prolong_add)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
 
 
 def layouts(ctx):
@@ -688,7 +753,7 @@ def main():
         return 2
     import gravo_mg_tpu_torch  # noqa: F401  (fails outside the repository)
     from gravo_mg_tpu_torch import (
-        Hierarchy, MinQuadWithFixedMG, MultigridSolver, native,
+        Hierarchy, MinQuadWithFixedMG, MultigridSolver, native, sparse,
     )
     from gravo_mg_tpu_torch.models import ConformalFlow
     from gravo_mg_tpu_torch.ops import build
@@ -697,13 +762,16 @@ def main():
     from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
     from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
     from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
+    from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain
     from gravo_mg_tpu_torch.parallel.halo import (
         PartitionedOp, _build_dist_op, _halo_plan, make_solver_mesh, partition_rows,
     )
     from gravo_mg_tpu_torch.solver.direct import cg_operator
     from gravo_mg_tpu_torch.solver import direct as cg_direct
     from gravo_mg_tpu_torch.solver.device_loop import StepGraph
-    from gravo_mg_tpu_torch.solver.multigrid import _ell_pattern, _ell_values
+    from gravo_mg_tpu_torch.solver.multigrid import (
+        _ell_pattern, _ell_values, release_loops,
+    )
     from gravo_mg_tpu_torch.sparse import (
         DiagEll, ShuffleTransfer, SlicedDiag, SlicedEll, diag_plan_arrays,
         shuffle_from_scipy, sliced_bytes, sliced_diag_bytes, sliced_from_scipy,
@@ -862,7 +930,7 @@ def main():
                      ("SIG21-262k U0T", sig21_U0T, sig21_UT_csr)]
     loop_info = {}     # the WHILE graph of phase poisson's fused solves
     kinfo = {name: {"err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
-                    "bound_by": None, "library_ms": None}
+                    "bound_by": None, "library_ms": None, "epilogues": {}}
              for name in Launches.NAMES}
 
     def keep(name, err, ms=None, plain_ms=None, bound=None, library_ms=None):
@@ -983,9 +1051,9 @@ def main():
             f"{cycle['new MB']:.1f} MB of sliced (col, val) against {cycle['old MB']:.1f} "
             "MB of ShuffleEll (v, r)")
 
-        # The SlicedDiag operators through both variants of sliced_diag_spmv,
-        # beside diag_spmv on A0's DiagEll (the route they replaced; the
-        # planner no longer builds it), cuSPARSE and the plain version.
+        # The SlicedDiag operators through sliced_diag_spmv, beside diag_spmv
+        # on A0's DiagEll (the route they replaced; the planner no longer
+        # builds it), cuSPARSE and the plain version.
         chain0 = ctx.chain_csr[0]
         idx0, mask0 = _ell_pattern(chain0)
         t0 = time.perf_counter()
@@ -1007,7 +1075,6 @@ def main():
         sdiag_cases = [("A0", ctx.levels[0].A, chain0, D0),
                        ("CG M+1e-3S", A_cg, lhs_cg, None),
                        ("MinQuad A0", mq.ctx.levels[0].A, mq.ctx.chain_csr[0], None)]
-        faster = {}
         for label, A, csr, D in sdiag_cases:
             if not isinstance(A, SlicedDiag):
                 raise AssertionError(f"{label} is a {type(A).__name__}, not SlicedDiag")
@@ -1037,30 +1104,29 @@ def main():
                 xs = rng.standard_normal((A.ncols,) if d == 1 else (A.ncols, d))
                 x = torch.from_numpy(xs).to(dev, dtype)
                 args = (A.slice_ptr, A.base, A.delta, val, A.wide_ptr, A.wide_col)
-                fns = {v: (lambda v=v: sdmod.sliced_diag_spmv(*args, x, A.nrows, A.wmax, v))
-                       for v in sdmod.VARIANTS}
-                fns["library"] = lambda: library_apply(lib, x)
-                fns["plain"] = lambda: sdmod.sliced_diag_spmv_plain(*args, x, A.nrows)
-                order = ["staged", "direct", "library", "plain"]
+                fns = {"kernel": lambda: sdmod.sliced_diag_spmv(*args, x, A.nrows),
+                       "library": lambda: library_apply(lib, x),
+                       "plain": lambda: sdmod.sliced_diag_spmv_plain(*args, x, A.nrows)}
+                order = ["kernel", "library", "plain"]
                 if D is not None:
                     dv = D.v.to(dtype)
                     fns["old"] = lambda: dmod.diag_spmv(D.start, D.r, dv, x, D.tg, D.nrows)
                     fns["old plain"] = lambda: dmod.diag_spmv_plain(D.start, D.r, dv, x,
                                                                     D.tg, D.nrows)
                     order += ["old", "old plain"]
-                order += ["library", "direct", "staged"] + (["old"] if D is not None else [])
+                order += ["library", "kernel"] + (["old"] if D is not None else [])
                 ys = {k: f() for k, f in fns.items()}
                 torch.cuda.synchronize()
                 errs = {k: rel_err(ys[k], ys["plain"]) for k in fns if k != "plain"}
                 if D is not None:
                     errs["old vs its plain"] = rel_err(ys["old"], ys["old plain"])
                 ok = (all(r <= tol for _, r in errs.values())
-                      and all(bool(torch.isfinite(ys[v]).all()) for v in sdmod.VARIANTS))
+                      and bool(torch.isfinite(ys["kernel"]).all()))
                 ev, ms = time_in_turns(fns, order)
                 own = spmv_bound(A.nnz, A.nrows, A.ncols, d, item,
                                  sliced_diag_bytes(ptr, wptr, item))
                 neutral = spmv_bound(A.nnz, A.nrows, A.ncols, d, item)
-                timed = [k for k in ("direct", "staged", "old", "library") if k in ms]
+                timed = [k for k in ("kernel", "old", "library") if k in ms]
                 dt = "f32" if item == 4 else "f64"
                 log(f"phase kernels: sliced_diag_spmv {label} d={d} {dt} device us: "
                     + ", ".join(f"{k} {ms[k] * 1e3:.2f}" for k in timed)
@@ -1079,9 +1145,8 @@ def main():
                     + f" (tol {tol}) {'ok' if ok else 'MISMATCH'}")
                 if not ok:
                     raise AssertionError(f"sliced_diag_spmv {label} d={d} {dt} disagrees")
-                faster[(label, d, dt)] = min(sdmod.VARIANTS, key=lambda v: ms[v])
-                keep("sliced_diag_spmv", max(errs[v][0] for v in sdmod.VARIANTS),
-                     *((ms[sdmod.PREFERRED], ms["plain"], own, ms["library"])
+                keep("sliced_diag_spmv", errs["kernel"][0],
+                     *((ms["kernel"], ms["plain"], own, ms["library"])
                        if (label, d, item) == ("A0", 1, 4) else ()))
                 if D is not None:
                     keep("diag_spmv", errs["old vs its plain"][0],
@@ -1091,10 +1156,151 @@ def main():
                     log(f"phase kernels: A0 {dt} per 1M V-cycle (10 applies): "
                         + ", ".join(f"{k} {10 * ms[k]:.4f} ms" for k in timed))
                 del x, ys, fns, lib, val
-        log("phase kernels: faster sliced_diag_spmv variant " + ", ".join(
-            f"{lbl} d={d} {dt}: {v}" for (lbl, d, dt), v in faster.items())
-            + f"; solves run {sdmod.PREFERRED}")
         del D0, sdiag_cases
+
+        # The epilogues (ops/epilogue.py): each operation of the cycle as one
+        # launch ("fused") beside the kernel's plain-mode SpMV followed by the
+        # torch ops ("composed", its bitwise reference), the bare SpMV and
+        # the plain version (the plain SpMV and the same torch ops), on A0
+        # (sliced_diag_spmv), A1 and U0 (sliced_spmv); d = 1 in f32 (the
+        # Poisson cycle) and d = 3 in f64 (the flow's).  Bound: the SpMV's
+        # matrix bytes (SlicedDiag: its layout's own, as the plain A0 row;
+        # SlicedEll: format-neutral, below its layout's) plus x and the
+        # vectors the epilogue reads and writes, each once; for SlicedDiag
+        # the format-neutral bound beside it.  Library: the residual as
+        # torch.addmv/addmm(b, A, x, alpha=-1) and the add as
+        # torch.addmv/addmm(z, U, e) on the same CSR (cuSPARSE); no single
+        # PyTorch call computes a Chebyshev step.
+        epi_cases = ([("A0", ctx.levels[0].A, chain0, op) for op in EPI_OPS]
+                     + [("A1", ctx.levels[1].A, ctx.chain_csr[1], op) for op in EPI_OPS]
+                     + [("U0", ctx.transfers[0].U, ctx.U_csr[0], "add")])
+        # operations per 1M V-cycle (the residual once more in the criterion)
+        epi_cycle = {"cheb_first": 2, "cheb_next": 6, "residual": 2}
+        epi_sum = {}
+
+        def epilogue_case(label, A, csr, op, dtype, d):
+            """One operation's timings and checks; its tensors die with the
+            call (phase poisson's peak memory must not count them)."""
+            name = "sliced_diag_spmv" if isinstance(A, SlicedDiag) else "sliced_spmv"
+            item = 4 if dtype == torch.float32 else 8
+            tol = TOL_F32 if item == 4 else TOL_F64
+            Aop = dataclasses.replace(A, val=A.val.to(dtype))
+
+            def vec(rows, scale=1.0):
+                v = scale * rng.standard_normal((rows,) if d == 1 else (rows, d))
+                return torch.from_numpy(v).to(dev, dtype)
+
+            def spmv_plain(v):
+                if isinstance(A, SlicedDiag):
+                    return sdmod.sliced_diag_spmv_plain(
+                        A.slice_ptr, A.base, A.delta, Aop.val, A.wide_ptr, A.wide_col,
+                        v, A.nrows)
+                return slmod.sliced_spmv_plain(A.slice_ptr, A.col, Aop.val, v, A.nrows)
+
+            x = vec(A.ncols)
+            vb = A.nrows * d * item            # one vector the shape of y
+            library = None
+            if op in ("add", "residual"):
+                csr = csr.copy()               # cuSPARSE's values as the layout holds them
+                csr.data = csr.data.astype(np.float32)
+                lib = csr_tensor(csr, dtype, dev)
+                addm = torch.addmv if d == 1 else torch.addmm
+            if op == "add":
+                z = vec(A.nrows)
+                mode, kw, extra = "add", {"z": z}, vb
+                fused = once = lambda: sparse.spmv_add(Aop, x, z)   # noqa: E731
+                library = lambda: addm(z, lib, x)   # noqa: E731
+            elif op == "residual":
+                b = vec(A.nrows)
+                mode, kw, extra = "residual", {"b": b}, vb
+                fused = once = lambda: sparse.spmv_residual(Aop, x, b)   # noqa: E731
+                library = lambda: addm(b, lib, x, alpha=-1)   # noqa: E731
+            else:
+                first = op == "cheb_first"
+                b, d_prev = vec(A.nrows), vec(A.nrows, 0.1)
+                dinv = torch.from_numpy(0.5 + rng.random(A.nrows)).to(dev, dtype)
+                c1 = None if first else EPI_C1
+                mode = "cheb"
+                kw = {"b": b, "dinv": dinv, "x": x, "d": None if first else d_prev,
+                      "c1": c1, "c2": EPI_C2}
+                # b, dinv, d written (and read unless first)
+                extra = 2 * vb + A.nrows * item + (0 if first else vb)
+                d_work = d_prev.clone()
+                fused = lambda: sparse.cheb_step(   # noqa: E731
+                    Aop, dinv, b, x, None if first else d_work, c1, EPI_C2)
+                once = lambda: sparse.cheb_step(   # noqa: E731
+                    Aop, dinv, b, x, None if first else d_prev.clone(), c1, EPI_C2)
+            fns = {"fused": fused,
+                   "composed": lambda: epilogue_plain(mode, sparse.spmv(Aop, x), **kw),
+                   "spmv": lambda: sparse.spmv(Aop, x),
+                   "plain": lambda: epilogue_plain(mode, spmv_plain(x), **kw)}
+            order = ["fused", "composed", "spmv", "plain", "spmv", "composed", "fused"]
+            if library is not None:
+                fns["library"] = library
+                order[3:3] = ["library"]
+                order.append("library")
+            got, composed, plain_v = (
+                r if isinstance(r, tuple) else (r,)
+                for r in (once(), fns["composed"](), fns["plain"]()))
+            lib_y = library() if library is not None else None
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(g, c) for g, c in zip(got, composed))
+            err, rel = rel_err(got[0], plain_v[0])
+            lib_err = rel_err(lib_y, plain_v[0]) if lib_y is not None else None
+            ok = (bitwise and rel <= tol and bool(torch.isfinite(got[0]).all())
+                  and (lib_err is None or lib_err[1] <= tol))
+            ev, ms = time_in_turns(fns, order)
+            if isinstance(A, SlicedDiag):
+                matrix = sliced_diag_bytes(A.slice_ptr.cpu().numpy(),
+                                           A.wide_ptr.cpu().numpy(), item)
+            else:
+                matrix = A.nnz * (4 + item)
+            bound = spmv_bound(A.nnz, A.nrows, A.ncols, d, item, matrix + extra)
+            neutral = spmv_bound(A.nnz, A.nrows, A.ncols, d, item,
+                                 A.nnz * (4 + item) + extra)
+            nbytes = matrix + extra + (A.nrows + A.ncols) * d * item
+            lib_ms = ms.get("library")
+            dt = "f32" if item == 4 else "f64"
+            log(f"phase kernels: epilogue {name} {label} {op} d={d} {dt} device us: "
+                f"fused {ms['fused'] * 1e3:.2f}, composed (kernel SpMV + torch ops) "
+                f"{ms['composed'] * 1e3:.2f}, bare SpMV {ms['spmv'] * 1e3:.2f}, "
+                + (f"library (cuSPARSE addmv/addmm) {lib_ms * 1e3:.2f}, "
+                   if lib_ms is not None else "library none, ")
+                + f"plain version {ms['plain'] * 1e3:.1f} (events per call: fused "
+                f"{ev['fused'] * 1e3:.2f}, composed {ev['composed'] * 1e3:.2f}); "
+                f"fused bytes {nbytes / 1e6:.2f} MB, bound {bound[0] * 1e3:.2f} us "
+                f"({bound[1]}), share fused {bound[0] / ms['fused']:.3f} composed "
+                f"{bound[0] / ms['composed']:.3f}"
+                + (f"; format-neutral bound {neutral[0] * 1e3:.2f} us, share fused "
+                   f"{neutral[0] / ms['fused']:.3f}" if isinstance(A, SlicedDiag) else "")
+                + f"; max_abs_err {err:.3e} rel {rel:.3e} vs plain (tol {tol})"
+                + (f", library {lib_err[0]:.3e} rel {lib_err[1]:.3e}"
+                   if lib_err is not None else "")
+                + f"; bitwise equal to the composition {bitwise} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"epilogue {name} {label} {op} d={d} {dt} disagrees")
+            keep(name, err)
+            if (d, item) == (1, 4):
+                kinfo[name]["epilogues"][f"{label} {op}"] = {
+                    "ms": ms["fused"], "composed_ms": ms["composed"],
+                    "spmv_ms": ms["spmv"], "plain_ms": ms["plain"],
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    "library_ms": lib_ms, "max_abs_err": err, "bitwise": bitwise}
+                if isinstance(A, SlicedDiag):
+                    kinfo[name]["epilogues"][f"{label} {op}"]["neutral_bound_ms"] = \
+                        neutral[0]
+                if label == "A0" and op in epi_cycle:
+                    for k in ("fused", "composed"):
+                        epi_sum[k] = epi_sum.get(k, 0.0) + epi_cycle[op] * ms[k]
+
+        for label, A, csr, op in epi_cases:
+            for dtype, d in ((torch.float32, 1), (torch.float64, 3)):
+                epilogue_case(label, A, csr, op, dtype, d)
+        del epi_cases
+        log(f"phase kernels: epilogue A0 per 1M V-cycle (2 first and 6 later "
+            f"Chebyshev steps, 2 residuals), d=1 f32: fused "
+            f"{epi_sum['fused']:.4f} ms, composed {epi_sum['composed']:.4f} ms")
 
         # The halo path's parts, 1M over 4 partitions on one rank, as phase
         # halo lays them out: the stacked A0 interior (SlicedDiag), the
@@ -1146,7 +1352,7 @@ def main():
                     compact = slmod.sliced_spmv_plain(L.slice_ptr, L.col, L.val, x, L.nrows)
                 elif diag:
                     dargs = (L.slice_ptr, L.base, L.delta, L.val, L.wide_ptr, L.wide_col, x)
-                    fns = {"new": lambda: sdmod.sliced_diag_spmv(*dargs, L.nrows, L.wmax),
+                    fns = {"new": lambda: sdmod.sliced_diag_spmv(*dargs, L.nrows),
                            "plain": lambda: sdmod.sliced_diag_spmv_plain(*dargs, L.nrows)}
                     y_new, y_ref = fns["new"](), fns["plain"]()
                     compact = y_ref
@@ -1201,7 +1407,7 @@ def main():
                                  hmod.halo_spmv_plain(*hargs, y0.clone()))
             elif diag:
                 dargs = (L.slice_ptr, L.base, L.delta, v64, L.wide_ptr, L.wide_col, x)
-                _, rel = rel_err(sdmod.sliced_diag_spmv(*dargs, L.nrows, L.wmax),
+                _, rel = rel_err(sdmod.sliced_diag_spmv(*dargs, L.nrows),
                                  sdmod.sliced_diag_spmv_plain(*dargs, L.nrows))
             else:
                 _, rel = rel_err(slmod.sliced_spmv(L.slice_ptr, L.col, v64, x, L.nrows, L.tpr),
@@ -1306,6 +1512,7 @@ def main():
         x = solver.solve(lhs, rhs, mode="fused")
         cold_call = time.perf_counter() - t0
         launches = counts.read()
+        launches_by_mode = counts.by_mode()
         ft = dict(solver.solver_timing)
         dispatched0 = ctx.dispatched
         cycles = int(ft["iterations"])
@@ -1371,6 +1578,42 @@ def main():
         host_traced_ms = solver.solver_timing["cycles"]
         host_dispatched = ctx.dispatched
         host_msg = trace_summary(prof, "poisson_traced_warm_solve", host_dispatched)
+
+        # The same solve with the plain compositions patched in (each
+        # operation as the kernel's plain SpMV and the torch ops, the
+        # epilogues' bitwise reference), captured on a cold solve into a
+        # graph pool of its own; then warm solves of the two WHILE graphs in
+        # turns (E P P E ...), CUDA events around each launch.
+        epi_loops, epi_pool = ctx._fused, ctx._graph_pool
+        ctx._fused, ctx._graph_pool = {}, None
+        with plain_compositions():
+            x_plain = solver.solve(lhs, rhs, mode="fused")
+        conv_plain = [r for _, r in solver.convergence]
+        cycles_plain = int(solver.solver_timing["iterations"])
+        plain_loops = ctx._fused
+        (ploop,) = plain_loops.values()
+        turns = {"epilogues": [], "plain": []}
+        turn_x = []
+        with loop_events() as ev:
+            for order in (("epilogues", "plain"), ("plain", "epilogues")) * 3:
+                for how in order:
+                    ctx._fused = epi_loops if how == "epilogues" else plain_loops
+                    turn_x.append(solver.solve(lhs, rhs, mode="fused"))
+                    turns[how].append(solver.solver_timing["cycles"])
+        turn_dev = {"epilogues": [], "plain": []}
+        for (a, b), how in zip(ev, [h for o in (("epilogues", "plain"),
+                                                ("plain", "epilogues")) * 3 for h in o]):
+            turn_dev[how].append(a.elapsed_time(b))
+        ctx._fused = plain_loops
+        with torch_trace(trace_dir, name="poisson_plain_fused_warm_solve") as prof:
+            solver.solve(lhs, rhs, mode="fused")
+        plain_msg = trace_summary(prof, "poisson_plain_fused_warm_solve", ctx.dispatched)
+        release_loops(plain_loops, dev)
+        ctx._fused, ctx._graph_pool = epi_loops, epi_pool
+
+        def median(v):
+            return sorted(v)[len(v) // 2]
+
         step_nodes = sum(graph.step_nodes.values())
         checks = {
             "finite, shape": bool(np.isfinite(x).all()) and x.shape == rhs.shape,
@@ -1386,12 +1629,25 @@ def main():
                 all(r[2:] == (5, 1, 1) for r in warm["fused"]),
             "one capture, one WHILE graph over all fused solves":
                 (graph.captures, graph.builds) == (1, 1)
-                and graph.launches == 2 + len(warm["fused"]),
+                and graph.launches == 2 + len(warm["fused"]) + len(turns["epilogues"]),
             "sliced_diag_spmv == 10 x cycles run":
                 launches["sliced_diag_spmv"] == 10 * dispatched0,
             "sliced_spmv launched": launches["sliced_spmv"] > 0,
             "no diag_spmv, shuffle_spmv":
                 launches["diag_spmv"] == 0 and launches["shuffle_spmv"] == 0,
+            "every epilogue launched (A0 cheb, residual; sliced cheb, residual, "
+            "add, plain)":
+                all(launches_by_mode["sliced_diag_spmv"][m] > 0
+                    for m in ("cheb", "residual"))
+                and all(launches_by_mode["sliced_spmv"][m] > 0
+                        for m in ("cheb", "residual", "add", "plain")),
+            "captured cycle <= 80 kernels": graph.step_nodes.get("kernel", 0) <= 80,
+            "plain compositions: x, trace, cycles (bitwise)":
+                np.array_equal(x_plain, x) and conv_plain == conv_fused
+                and cycles_plain == cycles
+                and all(np.array_equal(xt, x) for xt in turn_x),
+            "warm fused with epilogues no slower than with the plain compositions":
+                median(turns["epilogues"]) <= median(turns["plain"]),
         }
         ok = all(checks.values())
         # the loop-control kernel runs once before the WHILE node and once
@@ -1402,7 +1658,10 @@ def main():
             outer_nodes=step_nodes + 4, build_ms=graph.build_ms,
             capture_ms=graph.capture_ms,
             warm_solve_ms=sorted(w for w, *_ in warm["fused"])[len(warm["fused"]) // 2],
-            device_ms=sorted(loop_dev_ms)[len(loop_dev_ms) // 2])
+            device_ms=sorted(loop_dev_ms)[len(loop_dev_ms) // 2],
+            plain_compositions={"step_nodes": ploop.graph.step_nodes,
+                                "warm_solve_ms": median(turns["plain"]),
+                                "device_ms": median(turn_dev["plain"])})
         log(f"phase poisson: dof={solver.hierarchy.dof} {layouts(ctx)} "
             f"cycles {cycles} residual(host f64) {res:.3e} "
             f"trace {[f'{r:.3e}' for r in conv_fused]}")
@@ -1444,6 +1703,27 @@ def main():
             f"{dispatched}): {fused_msg}")
         log(f"phase poisson: traced warm solve under the profiler {host_traced_ms:.2f} ms, "
             f"{host_dispatched} cycles dispatched for {cycles}: {host_msg}")
+        log(f"phase poisson: epilogues against the plain compositions (each SpMV "
+            f"followed by its torch ops), same run: captured cycle kernels "
+            f"{graph.step_nodes.get('kernel', 0)} against "
+            f"{ploop.graph.step_nodes.get('kernel', 0)}, WHILE graph nodes "
+            f"{step_nodes + 4} against {sum(ploop.graph.step_nodes.values()) + 4}; "
+            f"warm fused cycles ms in turns epilogues "
+            + ", ".join(f"{v:.3f}" for v in turns["epilogues"])
+            + f" (median {median(turns['epilogues']):.3f}), plain "
+            + ", ".join(f"{v:.3f}" for v in turns["plain"])
+            + f" (median {median(turns['plain']):.3f}); WHILE graph device ms "
+            f"epilogues " + ", ".join(f"{v:.4f}" for v in turn_dev["epilogues"])
+            + f" (median {median(turn_dev['epilogues']):.4f}, "
+            f"{median(turn_dev['epilogues']) / max(cycles, 1):.4f} a cycle), plain "
+            + ", ".join(f"{v:.4f}" for v in turn_dev["plain"])
+            + f" (median {median(turn_dev['plain']):.4f}, "
+            f"{median(turn_dev['plain']) / max(cycles, 1):.4f} a cycle); cycles "
+            f"{cycles} / {cycles_plain}, x, trace bitwise equal "
+            f"{np.array_equal(x_plain, x) and conv_plain == conv_fused}")
+        log(f"phase poisson: plain-composition fused warm solve under the profiler: "
+            f"{plain_msg}")
+        log(f"phase poisson: launches by epilogue {launches_by_mode} (cold fused solve)")
         log(f"phase poisson: launches {launches} (sliced_diag_spmv expected 10 per "
             f"cycle run, {dispatched0} run) checks "
             f"{[k for k, v in checks.items() if not v] or 'all passed'} "
@@ -2000,17 +2280,23 @@ def main():
     }
     # ms, plain_ms, bound and library_ms at U0^T d=1 (sliced_spmv, and
     # shuffle_spmv on the JAX layout of the same matrix), A0 d=1 f32
-    # (diag_spmv on A0's DiagEll, format-neutral bound; sliced_diag_spmv in
-    # the variant solves run, the layout's own bound) and the halo path's
-    # U0^T halo part d=1 f32 (halo_spmv; cuSPARSE on its compact CSR);
-    # launches summed over the solve phases.
+    # (diag_spmv on A0's DiagEll, format-neutral bound; sliced_diag_spmv,
+    # the layout's own bound) and the halo path's U0^T halo part d=1 f32
+    # (halo_spmv; cuSPARSE on its compact CSR); launches summed over the
+    # solve phases, for sliced_spmv and sliced_diag_spmv also per epilogue,
+    # with each epilogue's times from phase kernels (A0, A1, U0 at d=1 f32;
+    # the residual's and the add's library time is cuSPARSE's addmv; no
+    # single PyTorch call computes a Chebyshev step, so it has none).
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"gravo_mg_tpu_torch/csrc/{src}", "replaces": replaces,
          "launches": counts.total[name], "max_abs_err": kinfo[name]["err"],
          "ms": kinfo[name]["ms"], "plain_ms": kinfo[name]["plain_ms"],
          "bound_ms": kinfo[name]["bound_ms"], "bound_by": kinfo[name]["bound_by"],
-         "library_ms": kinfo[name]["library_ms"]}
+         "library_ms": kinfo[name]["library_ms"],
+         **({"launches_by_mode": counts.total_by_mode[name],
+             "epilogues": kinfo[name]["epilogues"]}
+            if name in counts.total_by_mode else {})}
         for name, (src, replaces) in sources.items()
     ]
     # The loop-control kernel of the WHILE graph (csrc/graph_loop.cu): the

@@ -50,7 +50,9 @@
 //    a row finishes the sum.
 // The summation order is fixed for a given TPR.  Up to kCols right-hand-side
 // columns per thread, wider right-hand sides over gridDim.y.  Offsets are
-// 64-bit.
+// 64-bit.  sliced_spmv_kernel's row owner (sub == 0) applies the launch's
+// epilogue (spmv_common.cuh: plain, residual, add or the Chebyshev step) to
+// the finished sum before it stores; halo_spmv_kernel adds its sum plainly.
 
 #include "spmv_common.cuh"
 
@@ -58,13 +60,14 @@ namespace gravomg {
 
 constexpr int kSlice = 32;
 
-// The rows of one slice: y[row] = sum (kScatter false), or
+// The rows of one slice: y[row] = epilogue(sum) (kScatter false), or
 // y[out_row[row]] += sum (kScatter true).
-template <typename T, int TPR, bool kScatter>
+template <Mode M, typename T, int TPR, bool kScatter>
 __device__ __forceinline__ void sliced_rows(
     const int64_t* __restrict__ slice_ptr, const int32_t* __restrict__ col,
     const T* __restrict__ val, const int32_t* __restrict__ out_row,
-    const T* __restrict__ x, T* __restrict__ y, int64_t nrows, int64_t d) {
+    const T* __restrict__ x, T* __restrict__ y, const Epilogue<T>& ep,
+    int64_t nrows, int64_t d) {
   constexpr int kRows = kSlice / TPR;   // rows per warp
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kSlice;
@@ -107,21 +110,18 @@ __device__ __forceinline__ void sliced_rows(
       for (int j = 0; j < kCols; ++j)
         if (j < nj) yr[j] += acc[j];
     } else {
-      T* yr = y + row * d + j0;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        if (j < nj) yr[j] = acc[j];
+      store_row<M, T, kCols>(y, ep, row, d, j0, nj, acc);
     }
   }
 }
 
-template <typename T, int TPR>
+template <Mode M, typename T, int TPR>
 __global__ void __launch_bounds__(kThreads)
 sliced_spmv_kernel(const int64_t* __restrict__ slice_ptr,
                    const int32_t* __restrict__ col, const T* __restrict__ val,
-                   const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
-                   int64_t d) {
-  sliced_rows<T, TPR, false>(slice_ptr, col, val, nullptr, x, y, nrows, d);
+                   const T* __restrict__ x, T* __restrict__ y,
+                   const Epilogue<T> ep, int64_t nrows, int64_t d) {
+  sliced_rows<M, T, TPR, false>(slice_ptr, col, val, nullptr, x, y, ep, nrows, d);
 }
 
 template <typename T, int TPR>
@@ -131,30 +131,31 @@ halo_spmv_kernel(const int64_t* __restrict__ slice_ptr,
                  const int32_t* __restrict__ out_row,
                  const T* __restrict__ halo, T* __restrict__ y, int64_t nrows,
                  int64_t d) {
-  sliced_rows<T, TPR, true>(slice_ptr, col, val, out_row, halo, y, nrows, d);
+  sliced_rows<Mode::kPlain, T, TPR, true>(slice_ptr, col, val, out_row, halo, y,
+                                          Epilogue<T>{}, nrows, d);
 }
 
-// out_row == nullptr: sliced_spmv_kernel; else halo_spmv_kernel.
-template <typename T, int TPR>
+// out_row == nullptr: sliced_spmv_kernel; else halo_spmv_kernel (plain).
+template <Mode M, typename T, int TPR>
 void launch_tpr(const int64_t* slice_ptr, const int32_t* col, const T* val,
-                const int32_t* out_row, const T* x, T* y, int64_t nrows,
-                int64_t d, cudaStream_t stream) {
+                const int32_t* out_row, const T* x, T* y, const Epilogue<T>& ep,
+                int64_t nrows, int64_t d, cudaStream_t stream) {
   const int64_t slices = (nrows + kSlice - 1) / kSlice;
   const int64_t threads = slices * TPR * kSlice;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
                   static_cast<unsigned>((d + kCols - 1) / kCols));
   if (out_row == nullptr)
-    sliced_spmv_kernel<T, TPR><<<grid, kThreads, 0, stream>>>(
-        slice_ptr, col, val, x, y, nrows, d);
+    sliced_spmv_kernel<M, T, TPR><<<grid, kThreads, 0, stream>>>(
+        slice_ptr, col, val, x, y, ep, nrows, d);
   else
     halo_spmv_kernel<T, TPR><<<grid, kThreads, 0, stream>>>(
         slice_ptr, col, val, out_row, x, y, nrows, d);
 }
 
-template <typename T>
-int launch_sliced_spmv(const void* slice_ptr, const void* col, const void* val,
-                       const void* out_row, const void* x, void* y,
-                       int64_t nrows, int64_t d, int64_t tpr, void* stream) {
+template <Mode M, typename T>
+int launch(const void* slice_ptr, const void* col, const void* val,
+           const void* out_row, const void* x, void* y, const Epilogue<T>& ep,
+           int64_t nrows, int64_t d, int64_t tpr, void* stream) {
   if (nrows <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const auto* p = static_cast<const int64_t*>(slice_ptr);
   const auto* c = static_cast<const int32_t*>(col);
@@ -164,12 +165,12 @@ int launch_sliced_spmv(const void* slice_ptr, const void* col, const void* val,
   auto* yy = static_cast<T*>(y);
   auto st = static_cast<cudaStream_t>(stream);
   switch (tpr) {
-    case 1: launch_tpr<T, 1>(p, c, v, o, xx, yy, nrows, d, st); break;
-    case 2: launch_tpr<T, 2>(p, c, v, o, xx, yy, nrows, d, st); break;
-    case 4: launch_tpr<T, 4>(p, c, v, o, xx, yy, nrows, d, st); break;
-    case 8: launch_tpr<T, 8>(p, c, v, o, xx, yy, nrows, d, st); break;
-    case 16: launch_tpr<T, 16>(p, c, v, o, xx, yy, nrows, d, st); break;
-    case 32: launch_tpr<T, 32>(p, c, v, o, xx, yy, nrows, d, st); break;
+    case 1: launch_tpr<M, T, 1>(p, c, v, o, xx, yy, ep, nrows, d, st); break;
+    case 2: launch_tpr<M, T, 2>(p, c, v, o, xx, yy, ep, nrows, d, st); break;
+    case 4: launch_tpr<M, T, 4>(p, c, v, o, xx, yy, ep, nrows, d, st); break;
+    case 8: launch_tpr<M, T, 8>(p, c, v, o, xx, yy, ep, nrows, d, st); break;
+    case 16: launch_tpr<M, T, 16>(p, c, v, o, xx, yy, ep, nrows, d, st); break;
+    case 32: launch_tpr<M, T, 32>(p, c, v, o, xx, yy, ep, nrows, d, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -177,38 +178,105 @@ int launch_sliced_spmv(const void* slice_ptr, const void* col, const void* val,
 
 }  // namespace gravomg
 
+// One entry per (kernel or epilogue, dtype): the layout's arguments, x and
+// the output (x_out for the Chebyshev step), the epilogue's vectors.
+
 extern "C" {
 
 int gravomg_sliced_spmv_f32(const void* slice_ptr, const void* col,
                             const void* val, const void* x, void* y,
                             int64_t nrows, int64_t d, int64_t tpr,
                             void* stream) {
-  return gravomg::launch_sliced_spmv<float>(slice_ptr, col, val, nullptr, x, y,
-                                            nrows, d, tpr, stream);
+  return gravomg::launch<gravomg::Mode::kPlain, float>(
+      slice_ptr, col, val, nullptr, x, y, gravomg::vector_epilogue<float>(nullptr),
+      nrows, d, tpr, stream);
 }
 
 int gravomg_sliced_spmv_f64(const void* slice_ptr, const void* col,
                             const void* val, const void* x, void* y,
                             int64_t nrows, int64_t d, int64_t tpr,
                             void* stream) {
-  return gravomg::launch_sliced_spmv<double>(slice_ptr, col, val, nullptr, x,
-                                             y, nrows, d, tpr, stream);
+  return gravomg::launch<gravomg::Mode::kPlain, double>(
+      slice_ptr, col, val, nullptr, x, y,
+      gravomg::vector_epilogue<double>(nullptr), nrows, d, tpr, stream);
+}
+
+int gravomg_sliced_spmv_residual_f32(const void* slice_ptr, const void* col,
+                                     const void* val, const void* x, void* y,
+                                     const void* b, int64_t nrows, int64_t d,
+                                     int64_t tpr, void* stream) {
+  return gravomg::launch<gravomg::Mode::kResidual, float>(
+      slice_ptr, col, val, nullptr, x, y, gravomg::vector_epilogue<float>(b),
+      nrows, d, tpr, stream);
+}
+
+int gravomg_sliced_spmv_residual_f64(const void* slice_ptr, const void* col,
+                                     const void* val, const void* x, void* y,
+                                     const void* b, int64_t nrows, int64_t d,
+                                     int64_t tpr, void* stream) {
+  return gravomg::launch<gravomg::Mode::kResidual, double>(
+      slice_ptr, col, val, nullptr, x, y, gravomg::vector_epilogue<double>(b),
+      nrows, d, tpr, stream);
+}
+
+int gravomg_sliced_spmv_add_f32(const void* slice_ptr, const void* col,
+                                const void* val, const void* x, void* y,
+                                const void* z, int64_t nrows, int64_t d,
+                                int64_t tpr, void* stream) {
+  return gravomg::launch<gravomg::Mode::kAdd, float>(
+      slice_ptr, col, val, nullptr, x, y, gravomg::vector_epilogue<float>(z),
+      nrows, d, tpr, stream);
+}
+
+int gravomg_sliced_spmv_add_f64(const void* slice_ptr, const void* col,
+                                const void* val, const void* x, void* y,
+                                const void* z, int64_t nrows, int64_t d,
+                                int64_t tpr, void* stream) {
+  return gravomg::launch<gravomg::Mode::kAdd, double>(
+      slice_ptr, col, val, nullptr, x, y, gravomg::vector_epilogue<double>(z),
+      nrows, d, tpr, stream);
+}
+
+int gravomg_sliced_spmv_cheb_f32(const void* slice_ptr, const void* col,
+                                 const void* val, const void* x, void* x_out,
+                                 const void* b, const void* dinv, void* dstep,
+                                 int64_t nrows, int64_t d, int64_t tpr,
+                                 int64_t first, double c1, double c2,
+                                 void* stream) {
+  return gravomg::launch<gravomg::Mode::kCheb, float>(
+      slice_ptr, col, val, nullptr, x, x_out,
+      gravomg::cheb_epilogue<float>(b, dinv, x, dstep, first, c1, c2), nrows, d,
+      tpr, stream);
+}
+
+int gravomg_sliced_spmv_cheb_f64(const void* slice_ptr, const void* col,
+                                 const void* val, const void* x, void* x_out,
+                                 const void* b, const void* dinv, void* dstep,
+                                 int64_t nrows, int64_t d, int64_t tpr,
+                                 int64_t first, double c1, double c2,
+                                 void* stream) {
+  return gravomg::launch<gravomg::Mode::kCheb, double>(
+      slice_ptr, col, val, nullptr, x, x_out,
+      gravomg::cheb_epilogue<double>(b, dinv, x, dstep, first, c1, c2), nrows, d,
+      tpr, stream);
 }
 
 int gravomg_halo_spmv_f32(const void* slice_ptr, const void* col,
                           const void* val, const void* out_row,
                           const void* halo, void* y, int64_t nrows, int64_t d,
                           int64_t tpr, void* stream) {
-  return gravomg::launch_sliced_spmv<float>(slice_ptr, col, val, out_row, halo,
-                                            y, nrows, d, tpr, stream);
+  return gravomg::launch<gravomg::Mode::kPlain, float>(
+      slice_ptr, col, val, out_row, halo, y,
+      gravomg::vector_epilogue<float>(nullptr), nrows, d, tpr, stream);
 }
 
 int gravomg_halo_spmv_f64(const void* slice_ptr, const void* col,
                           const void* val, const void* out_row,
                           const void* halo, void* y, int64_t nrows, int64_t d,
                           int64_t tpr, void* stream) {
-  return gravomg::launch_sliced_spmv<double>(slice_ptr, col, val, out_row,
-                                             halo, y, nrows, d, tpr, stream);
+  return gravomg::launch<gravomg::Mode::kPlain, double>(
+      slice_ptr, col, val, out_row, halo, y,
+      gravomg::vector_epilogue<double>(nullptr), nrows, d, tpr, stream);
 }
 
 }  // extern "C"

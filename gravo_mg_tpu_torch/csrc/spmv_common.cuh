@@ -5,6 +5,24 @@
 // are split over gridDim.y.  shuffle_spmv, diag_spmv and sliced_diag_spmv
 // run one thread per output row; sliced_spmv and halo_spmv one or more
 // (their TPR).
+//
+// The epilogues of sliced_spmv and sliced_diag_spmv: what the row's owning
+// thread does with its sum s = (A x)[row, j] before it stores, so that one
+// launch computes a whole operation of the multigrid cycle (the part the
+// JAX program hands to XLA's fusion around the Pallas call):
+//
+//   kPlain     y = s
+//   kResidual  y = b - s                     (the residual b - A x)
+//   kAdd       y = b + s                     (x + U e; b holds x)
+//   kCheb      r = b - s;  d = c1 d + (c2 dinv) r  (first step: d = (c2 dinv) r);
+//              y = x + d, and d stored where it is kept
+//
+// Each operation is rounded as the port's torch expression rounds it
+// (solver/smoothers.py, solver/multigrid.py): one IEEE-rounded add,
+// subtract or multiply per torch kernel, in that kernel order, never a
+// contracted FMA, so that a fused launch equals the plain SpMV followed by
+// the torch ops bit for bit.  c1 and c2 arrive as T, rounded from the
+// host's doubles as torch rounds a Python scalar for a tensor of type T.
 #pragma once
 
 #include <cstdint>
@@ -19,6 +37,73 @@ constexpr int kCols = 4;       // right-hand-side columns per thread
 inline dim3 spmv_grid(int64_t nrows, int64_t d) {
   return dim3(static_cast<unsigned>((nrows + kThreads - 1) / kThreads),
               static_cast<unsigned>((d + kCols - 1) / kCols));
+}
+
+enum class Mode : int { kPlain = 0, kResidual = 1, kAdd = 2, kCheb = 3 };
+
+// The epilogue's operands; y and these are (nrows, d) row-major, dinv
+// (nrows,).  Unused fields are null.
+template <typename T>
+struct Epilogue {
+  const T* b;     // kResidual, kCheb: the right-hand side; kAdd: the addend
+  const T* dinv;  // kCheb: the inverse diagonal
+  const T* x;     // kCheb: the iterate, the SpMV's own input
+  T* d;           // kCheb: the step, read unless `first`, written unless null
+  T c1, c2;       // kCheb
+  int first;      // kCheb: no c1 d term (and d is not read)
+};
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// Output element i = row * d + j from the row's sum s.
+template <Mode M, typename T>
+__device__ __forceinline__ T epilogue(const Epilogue<T>& ep, int64_t i,
+                                      int64_t row, T s) {
+  if constexpr (M == Mode::kPlain) {
+    return s;
+  } else if constexpr (M == Mode::kResidual) {
+    return sub_rn(ep.b[i], s);
+  } else if constexpr (M == Mode::kAdd) {
+    return add_rn(ep.b[i], s);
+  } else {
+    const T r = sub_rn(ep.b[i], s);
+    T step = mul_rn(mul_rn(ep.c2, ep.dinv[row]), r);
+    if (!ep.first) step = add_rn(mul_rn(ep.c1, ep.d[i]), step);
+    if (ep.d != nullptr) ep.d[i] = step;
+    return add_rn(ep.x[i], step);
+  }
+}
+
+// Row `row`'s columns j0 .. j0 + nj - 1 of y, through the epilogue.
+template <Mode M, typename T, int NC>
+__device__ __forceinline__ void store_row(T* __restrict__ y,
+                                          const Epilogue<T>& ep, int64_t row,
+                                          int64_t d, int64_t j0, int64_t nj,
+                                          const T (&acc)[NC]) {
+  const int64_t i0 = row * d + j0;
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    if (j < nj) y[i0 + j] = epilogue<M>(ep, i0 + j, row, acc[j]);
+}
+
+// The operands of the kResidual / kAdd epilogues (b or the addend) and of
+// kCheb, from the C entries' untyped pointers.
+template <typename T>
+inline Epilogue<T> vector_epilogue(const void* b) {
+  return {static_cast<const T*>(b), nullptr, nullptr, nullptr, T(0), T(0), 1};
+}
+
+template <typename T>
+inline Epilogue<T> cheb_epilogue(const void* b, const void* dinv, const void* x,
+                                 void* dstep, int64_t first, double c1, double c2) {
+  return {static_cast<const T*>(b), static_cast<const T*>(dinv),
+          static_cast<const T*>(x), static_cast<T*>(dstep), static_cast<T>(c1),
+          static_cast<T>(c2), static_cast<int>(first)};
 }
 
 }  // namespace gravomg

@@ -6,8 +6,9 @@ at first CUDA use and again whenever a ``.cu`` or ``.cuh`` source is newer
 than the library: the SpMV kernels, and the fused loop's WHILE graph
 (``graph_loop.cu``).  The library is loaded with ctypes: every pointer,
 graph handle and the stream go over as ``c_void_p``, sizes as
-``c_int64``, and each entry point returns ``cudaGetLastError()`` or the
-error of the call that failed, which :func:`check` turns into an
+``c_int64``, the Chebyshev coefficients as ``c_double``, and each entry
+point returns ``cudaGetLastError()`` or the error of the call that
+failed, which :func:`check` turns into an
 exception.  Nothing here runs at import time, so the package imports on
 machines without nvcc or a GPU.
 """
@@ -29,10 +30,21 @@ ARCH = "sm_90a"
 
 _SPMV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
 _DIAG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-_SLICED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
-_SLICED_DIAG_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
-_HALO_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 _P = ctypes.c_void_p
+_I = ctypes.c_int64
+_D = ctypes.c_double
+# sliced_spmv: (slice_ptr, col, val, x, y[, epilogue vectors], nrows, d, tpr
+# [, first, c1, c2], stream); sliced_diag_spmv: (slice_ptr, base, delta,
+# val, wide_ptr, wide_col, x, y[, epilogue vectors], nrows, d[, first, c1,
+# c2], stream).  The residual and add epilogues take one vector (b or z),
+# the Chebyshev step three (b, dinv, d).
+_SLICED_ARGS = [_P] * 5 + [_I] * 3 + [_P]
+_SLICED_VEC_ARGS = [_P] * 6 + [_I] * 3 + [_P]
+_SLICED_CHEB_ARGS = [_P] * 8 + [_I] * 4 + [_D] * 2 + [_P]
+_SLICED_DIAG_ARGS = [_P] * 8 + [_I] * 2 + [_P]
+_SLICED_DIAG_VEC_ARGS = [_P] * 9 + [_I] * 2 + [_P]
+_SLICED_DIAG_CHEB_ARGS = [_P] * 11 + [_I] * 3 + [_D] * 2 + [_P]
+_HALO_ARGS = [_P] * 6 + [_I] * 3 + [_P]
 _SIGNATURES = {
     "gravomg_graph_node_types": [_P, ctypes.POINTER(ctypes.c_int64)],
     "gravomg_graph_loop_create": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
@@ -43,12 +55,24 @@ _SIGNATURES = {
     "gravomg_halo_spmv_f64": _HALO_ARGS,
     "gravomg_sliced_diag_spmv_f32": _SLICED_DIAG_ARGS,
     "gravomg_sliced_diag_spmv_f64": _SLICED_DIAG_ARGS,
+    "gravomg_sliced_diag_spmv_residual_f32": _SLICED_DIAG_VEC_ARGS,
+    "gravomg_sliced_diag_spmv_residual_f64": _SLICED_DIAG_VEC_ARGS,
+    "gravomg_sliced_diag_spmv_add_f32": _SLICED_DIAG_VEC_ARGS,
+    "gravomg_sliced_diag_spmv_add_f64": _SLICED_DIAG_VEC_ARGS,
+    "gravomg_sliced_diag_spmv_cheb_f32": _SLICED_DIAG_CHEB_ARGS,
+    "gravomg_sliced_diag_spmv_cheb_f64": _SLICED_DIAG_CHEB_ARGS,
     "gravomg_shuffle_spmv_f32": _SPMV_ARGS,
     "gravomg_shuffle_spmv_f64": _SPMV_ARGS,
     "gravomg_diag_spmv_f32": _DIAG_ARGS,
     "gravomg_diag_spmv_f64": _DIAG_ARGS,
     "gravomg_sliced_spmv_f32": _SLICED_ARGS,
     "gravomg_sliced_spmv_f64": _SLICED_ARGS,
+    "gravomg_sliced_spmv_residual_f32": _SLICED_VEC_ARGS,
+    "gravomg_sliced_spmv_residual_f64": _SLICED_VEC_ARGS,
+    "gravomg_sliced_spmv_add_f32": _SLICED_VEC_ARGS,
+    "gravomg_sliced_spmv_add_f64": _SLICED_VEC_ARGS,
+    "gravomg_sliced_spmv_cheb_f32": _SLICED_CHEB_ARGS,
+    "gravomg_sliced_spmv_cheb_f64": _SLICED_CHEB_ARGS,
 }
 
 _lib = None

@@ -9,17 +9,19 @@ for the slots k < w_s = (slice_ptr[s + 1] - slice_ptr[s]) / 32 of slice s.
 It computes the function of the JAX package's DiagEll SpMV
 (``gravo_mg_tpu/ops/diag_spmv.py::_diag_spmv_pallas``) on a layout built
 for a GPU instead of the TPU's (tile, block diagonal) slots (see
-``sparse.SlicedDiag``).  The kernel has two variants, both built:
-``"direct"`` (each warp streams its slice's values and deltas from device
-memory) and ``"staged"`` (a persistent grid whose blocks copy the next
-slices' values and deltas into shared memory with TMA bulk copies while
-they sum the current ones).  :data:`PREFERRED`, the wrapper's default and
-so the one every solve runs, is the faster of the two in an H100
-measurement at the 1M operators' shapes (PERF.md).
+``sparse.SlicedDiag``): each warp streams its slice's values and deltas
+from device memory.
 
-:func:`sliced_diag_spmv` takes the plain version for CPU tensors only; for
-CUDA tensors it launches the kernel or raises.  ``launches`` counts kernel
-launches, so a run can show that it went through the kernel.
+:func:`sliced_diag_spmv_residual`, :func:`sliced_diag_spmv_add` and
+:func:`sliced_diag_spmv_cheb` launch the same kernel with an epilogue
+(``ops/epilogue.py``): ``b - A x``, ``z + A x`` and a whole Chebyshev or
+Jacobi step, each in one pass and bitwise equal to the plain-mode kernel
+followed by the torch ops of :func:`epilogue.epilogue_plain`.
+
+Every wrapper takes the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises.  ``launches`` counts kernel
+launches, whatever the epilogue, and ``launches_by_mode`` counts them per
+epilogue, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -27,12 +29,11 @@ from __future__ import annotations
 import torch
 
 from .build import check, load_library
+from .epilogue import MODES, check_epilogue, epilogue_plain
 from .sliced_spmv import SLICE, entry_rows, sliced_spmv_plain
 
-VARIANTS = ("direct", "staged")
-PREFERRED = "direct"
-
 launches = 0
+launches_by_mode = dict.fromkeys(MODES, 0)
 
 _FLOATS = (torch.float32, torch.float64)
 _INT32_ROWS = 2**31 - SLICE
@@ -66,7 +67,7 @@ def sliced_diag_spmv_plain(slice_ptr: torch.Tensor, base: torch.Tensor,
 def check_operands(slice_ptr: torch.Tensor, base: torch.Tensor,
                    delta: torch.Tensor, val: torch.Tensor,
                    wide_ptr: torch.Tensor, wide_col: torch.Tensor,
-                   x: torch.Tensor, nrows: int, variant: str) -> int:
+                   x: torch.Tensor, nrows: int) -> int:
     """Validate the kernel operands; returns the right-hand-side count d."""
     if x.ndim not in (1, 2):
         raise ValueError(f"sliced_diag_spmv: x must be (n,) or (n, d), got {tuple(x.shape)}")
@@ -91,8 +92,6 @@ def check_operands(slice_ptr: torch.Tensor, base: torch.Tensor,
                          f"{wide_ptr.numel()} entries for {nrows} rows")
     if nrows >= _INT32_ROWS or x.shape[0] >= 2**31:
         raise ValueError("sliced_diag_spmv: rows and columns must fit int32")
-    if variant not in VARIANTS:
-        raise ValueError(f"sliced_diag_spmv: variant {variant!r} not in {VARIANTS}")
     for t in (slice_ptr, base, delta, val, wide_ptr, wide_col):
         if t.device != x.device:
             raise ValueError(f"sliced_diag_spmv: operands on {t.device} and {x.device}")
@@ -100,45 +99,109 @@ def check_operands(slice_ptr: torch.Tensor, base: torch.Tensor,
             raise ValueError("sliced_diag_spmv: operands must be contiguous")
     if not x.is_contiguous():
         raise ValueError("sliced_diag_spmv: operands must be contiguous")
-    if variant == "staged" and (val.data_ptr() % 16 or delta.data_ptr() % 16):
-        raise ValueError("sliced_diag_spmv: the staged variant needs val and delta "
-                         "16-byte aligned (bulk copies)")
     return 1 if x.ndim == 1 else x.shape[1]
+
+
+def _launch(mode: str, tensors, nrows: int, d: int, tail=()) -> None:
+    """Launch the kernel with epilogue ``mode`` on the current stream:
+    ``tensors`` are the C entry's pointer operands (None for null)."""
+    x = tensors[6]
+    lib = load_library()
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"gravomg_sliced_diag_spmv_{dt}" if mode == "plain"
+                 else f"gravomg_sliced_diag_spmv_{mode}_{dt}")
+    with torch.cuda.device(x.device):
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                 nrows, d, *tail, torch.cuda.current_stream(x.device).cuda_stream)
+    check(lib, err, f"sliced_diag_spmv ({mode}) launch")
+    global launches
+    launches += 1
+    launches_by_mode[mode] += 1
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"sliced_diag_spmv: unsupported device {x.device}")
+    return True
 
 
 def sliced_diag_spmv(slice_ptr: torch.Tensor, base: torch.Tensor,
                      delta: torch.Tensor, val: torch.Tensor,
                      wide_ptr: torch.Tensor, wide_col: torch.Tensor,
-                     x: torch.Tensor, nrows: int, wmax: int,
-                     variant: str = PREFERRED) -> torch.Tensor:
+                     x: torch.Tensor, nrows: int) -> torch.Tensor:
     """y = A @ x for a SlicedDiag layout; x is (ncols,) or (ncols, d).
 
     slice_ptr: (ceil(nrows / 32) + 1,) int64 entry offsets; base: (E/32,)
     int32; delta: (E,) int8; val: (E,) values, same dtype as x; wide_ptr:
     (ceil(nrows / 32),) int64, -1 for a delta slice; wide_col: (E_wide,)
-    int32; wmax: the widest slice in slots; variant: "direct" or "staged"
-    (which refuses a slice of more than 72 KB of values and deltas).
-    Returns (nrows,) or (nrows, d).
+    int32.  Returns (nrows,) or (nrows, d).
     """
-    if x.device.type == "cpu":
-        return sliced_diag_spmv_plain(slice_ptr, base, delta, val, wide_ptr,
-                                      wide_col, x, nrows)
-    if x.device.type != "cuda":
-        raise ValueError(f"sliced_diag_spmv: unsupported device {x.device}")
-    d = check_operands(slice_ptr, base, delta, val, wide_ptr, wide_col, x,
-                       nrows, variant)
+    layout = (slice_ptr, base, delta, val, wide_ptr, wide_col)
+    if not _on_card(x):
+        return sliced_diag_spmv_plain(*layout, x, nrows)
+    d = check_operands(*layout, x, nrows)
     y = torch.empty((nrows,) + tuple(x.shape[1:]), dtype=x.dtype,
                     device=x.device)
-    lib = load_library()
-    fn = (lib.gravomg_sliced_diag_spmv_f32 if x.dtype == torch.float32
-          else lib.gravomg_sliced_diag_spmv_f64)
-    with torch.cuda.device(x.device):
-        err = fn(slice_ptr.data_ptr(), base.data_ptr(), delta.data_ptr(),
-                 val.data_ptr(), wide_ptr.data_ptr(), wide_col.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), nrows, d, wmax,
-                 VARIANTS.index(variant),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    check(lib, err, f"sliced_diag_spmv ({variant}) launch")
-    global launches
-    launches += 1
+    _launch("plain", (*layout, x, y), nrows, d)
     return y
+
+
+def sliced_diag_spmv_residual(slice_ptr: torch.Tensor, base: torch.Tensor,
+                              delta: torch.Tensor, val: torch.Tensor,
+                              wide_ptr: torch.Tensor, wide_col: torch.Tensor,
+                              x: torch.Tensor, b: torch.Tensor,
+                              nrows: int) -> torch.Tensor:
+    """``b - A @ x`` in one launch; b has the shape of A @ x."""
+    layout = (slice_ptr, base, delta, val, wide_ptr, wide_col)
+    if not _on_card(x):
+        return epilogue_plain("residual", sliced_diag_spmv_plain(*layout, x, nrows),
+                              b=b)
+    d = check_operands(*layout, x, nrows)
+    check_epilogue("sliced_diag_spmv_residual", "residual", x, nrows, b=b)
+    y = torch.empty_like(b)
+    _launch("residual", (*layout, x, y, b), nrows, d)
+    return y
+
+
+def sliced_diag_spmv_add(slice_ptr: torch.Tensor, base: torch.Tensor,
+                         delta: torch.Tensor, val: torch.Tensor,
+                         wide_ptr: torch.Tensor, wide_col: torch.Tensor,
+                         x: torch.Tensor, z: torch.Tensor,
+                         nrows: int) -> torch.Tensor:
+    """``z + A @ x`` in one launch; z has the shape of A @ x."""
+    layout = (slice_ptr, base, delta, val, wide_ptr, wide_col)
+    if not _on_card(x):
+        return epilogue_plain("add", sliced_diag_spmv_plain(*layout, x, nrows), z=z)
+    d = check_operands(*layout, x, nrows)
+    check_epilogue("sliced_diag_spmv_add", "add", x, nrows, z=z)
+    y = torch.empty_like(z)
+    _launch("add", (*layout, x, y, z), nrows, d)
+    return y
+
+
+def sliced_diag_spmv_cheb(slice_ptr: torch.Tensor, base: torch.Tensor,
+                          delta: torch.Tensor, val: torch.Tensor,
+                          wide_ptr: torch.Tensor, wide_col: torch.Tensor,
+                          x: torch.Tensor, b: torch.Tensor, dinv: torch.Tensor,
+                          d, c1, c2: float, nrows: int, keep_d: bool = True):
+    """One smoother step in one launch, as :func:`sliced_spmv.sliced_spmv_cheb`:
+    ``r = b - A x``, ``d = c1 d + (c2 dinv) r`` (no ``c1 d`` term and no d
+    taken where ``c1`` is None), ``x_out = x + d``.  Returns ``(x_out,
+    d)``: d written in place where given, a new tensor on a first step,
+    None where ``keep_d`` is false."""
+    layout = (slice_ptr, base, delta, val, wide_ptr, wide_col)
+    if not _on_card(x):
+        return epilogue_plain(
+            "cheb", sliced_diag_spmv_plain(*layout, x, nrows), b=b, dinv=dinv, x=x,
+            d=d, c1=c1, c2=c2, keep_d=keep_d)
+    nd = check_operands(*layout, x, nrows)
+    check_epilogue("sliced_diag_spmv_cheb", "cheb", x, nrows, b=b, dinv=dinv, d=d,
+                   c1=c1)
+    if d is None and keep_d:
+        d = torch.empty_like(b)
+    x_out = torch.empty_like(x)
+    _launch("cheb", (*layout, x, x_out, b, dinv, d), nrows, nd,
+            (int(c1 is None), 0.0 if c1 is None else float(c1), float(c2)))
+    return x_out, (d if keep_d else None)

@@ -9,9 +9,16 @@ It computes the function of the JAX package's ShuffleEll SpMV
 of ``gravo_mg_tpu/sparse.py``) on a layout built for a GPU instead of the
 TPU's per-row-group source blocks (see ``sparse.SlicedEll``).
 
-:func:`sliced_spmv` takes the plain version for CPU tensors only; for CUDA
+:func:`sliced_spmv_residual`, :func:`sliced_spmv_add` and
+:func:`sliced_spmv_cheb` launch the same kernel with an epilogue
+(``ops/epilogue.py``): ``b - A x``, ``z + A x`` and a whole Chebyshev or
+Jacobi step, each in one pass and bitwise equal to the plain-mode kernel
+followed by the torch ops of :func:`epilogue.epilogue_plain`.
+
+Every wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
-launches, so a run can show that it went through the kernel.
+launches, whatever the epilogue, and ``launches_by_mode`` counts them per
+epilogue, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -19,11 +26,13 @@ from __future__ import annotations
 import torch
 
 from .build import check, load_library
+from .epilogue import MODES, check_epilogue, epilogue_plain
 
 SLICE = 32          # rows per slice: one warp
 TPRS = (1, 2, 4, 8, 16, 32)
 
 launches = 0
+launches_by_mode = dict.fromkeys(MODES, 0)
 
 _FLOATS = (torch.float32, torch.float64)
 
@@ -81,6 +90,31 @@ def check_operands(slice_ptr: torch.Tensor, col: torch.Tensor,
     return 1 if x.ndim == 1 else x.shape[1]
 
 
+def _launch(mode: str, tensors, nrows: int, d: int, tpr: int, tail=()) -> None:
+    """Launch the kernel with epilogue ``mode`` on the current stream:
+    ``tensors`` are the C entry's pointer operands (None for null)."""
+    x = tensors[3]
+    lib = load_library()
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"gravomg_sliced_spmv_{dt}" if mode == "plain"
+                 else f"gravomg_sliced_spmv_{mode}_{dt}")
+    with torch.cuda.device(x.device):
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                 nrows, d, tpr, *tail, torch.cuda.current_stream(x.device).cuda_stream)
+    check(lib, err, f"sliced_spmv ({mode}) launch")
+    global launches
+    launches += 1
+    launches_by_mode[mode] += 1
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"sliced_spmv: unsupported device {x.device}")
+    return True
+
+
 def sliced_spmv(slice_ptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                 x: torch.Tensor, nrows: int, tpr: int = 1) -> torch.Tensor:
     """y = A @ x for a SlicedEll layout; x is (ncols,) or (ncols, d).
@@ -89,21 +123,63 @@ def sliced_spmv(slice_ptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     int32; val: (E,) values, same dtype as x; tpr: threads per row on the
     card (1, 2, 4, ..., 32).  Returns (nrows,) or (nrows, d).
     """
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return sliced_spmv_plain(slice_ptr, col, val, x, nrows)
-    if x.device.type != "cuda":
-        raise ValueError(f"sliced_spmv: unsupported device {x.device}")
     d = check_operands(slice_ptr, col, val, x, nrows, tpr)
     y = torch.empty((nrows,) + tuple(x.shape[1:]), dtype=x.dtype,
                     device=x.device)
-    lib = load_library()
-    fn = (lib.gravomg_sliced_spmv_f32 if x.dtype == torch.float32
-          else lib.gravomg_sliced_spmv_f64)
-    with torch.cuda.device(x.device):
-        err = fn(slice_ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), nrows, d, tpr,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    check(lib, err, "sliced_spmv launch")
-    global launches
-    launches += 1
+    _launch("plain", (slice_ptr, col, val, x, y), nrows, d, tpr)
     return y
+
+
+def sliced_spmv_residual(slice_ptr: torch.Tensor, col: torch.Tensor,
+                         val: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                         nrows: int, tpr: int = 1) -> torch.Tensor:
+    """``b - A @ x`` in one launch; b has the shape of A @ x."""
+    if not _on_card(x):
+        return epilogue_plain("residual", sliced_spmv_plain(slice_ptr, col, val, x,
+                                                            nrows), b=b)
+    d = check_operands(slice_ptr, col, val, x, nrows, tpr)
+    check_epilogue("sliced_spmv_residual", "residual", x, nrows, b=b)
+    y = torch.empty_like(b)
+    _launch("residual", (slice_ptr, col, val, x, y, b), nrows, d, tpr)
+    return y
+
+
+def sliced_spmv_add(slice_ptr: torch.Tensor, col: torch.Tensor,
+                    val: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                    nrows: int, tpr: int = 1) -> torch.Tensor:
+    """``z + A @ x`` in one launch (the prolongation's ``x + U e``, with
+    ``e`` as x here); z has the shape of A @ x."""
+    if not _on_card(x):
+        return epilogue_plain("add", sliced_spmv_plain(slice_ptr, col, val, x, nrows),
+                              z=z)
+    d = check_operands(slice_ptr, col, val, x, nrows, tpr)
+    check_epilogue("sliced_spmv_add", "add", x, nrows, z=z)
+    y = torch.empty_like(z)
+    _launch("add", (slice_ptr, col, val, x, y, z), nrows, d, tpr)
+    return y
+
+
+def sliced_spmv_cheb(slice_ptr: torch.Tensor, col: torch.Tensor,
+                     val: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                     dinv: torch.Tensor, d, c1, c2: float, nrows: int,
+                     tpr: int = 1, keep_d: bool = True):
+    """One smoother step in one launch: ``r = b - A x``, ``d = c1 d +
+    (c2 dinv) r`` (``d = (c2 dinv) r`` where ``c1`` is None, a first
+    step, which takes no d), ``x_out = x + d``.  A is square; dinv is
+    (nrows,).  Returns ``(x_out, d)``: x_out a new tensor; d written in
+    place where given, a new tensor on a first step, None where
+    ``keep_d`` is false (a Jacobi step)."""
+    if not _on_card(x):
+        return epilogue_plain(
+            "cheb", sliced_spmv_plain(slice_ptr, col, val, x, nrows), b=b,
+            dinv=dinv, x=x, d=d, c1=c1, c2=c2, keep_d=keep_d)
+    nd = check_operands(slice_ptr, col, val, x, nrows, tpr)
+    check_epilogue("sliced_spmv_cheb", "cheb", x, nrows, b=b, dinv=dinv, d=d, c1=c1)
+    if d is None and keep_d:
+        d = torch.empty_like(b)
+    x_out = torch.empty_like(x)
+    _launch("cheb", (slice_ptr, col, val, x, x_out, b, dinv, d), nrows, nd, tpr,
+            (int(c1 is None), 0.0 if c1 is None else float(c1), float(c2)))
+    return x_out, (d if keep_d else None)

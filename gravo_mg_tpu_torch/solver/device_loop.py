@@ -34,8 +34,15 @@ import torch
 from ..ops import diag_spmv, halo_spmv, shuffle_spmv, sliced_diag_spmv, sliced_spmv
 from ..ops.build import check, load_library
 
-# The wrappers that count their kernel launches (``launches``).
+# The wrappers that count their kernel launches (``launches``, and per
+# epilogue ``launches_by_mode`` where the kernel has epilogues).
 KERNEL_MODULES = (sliced_spmv, sliced_diag_spmv, halo_spmv, diag_spmv, shuffle_spmv)
+
+
+def _counts() -> list:
+    """Every kernel module's launches and its per-epilogue counts."""
+    return [(mod.launches, dict(getattr(mod, "launches_by_mode", {})))
+            for mod in KERNEL_MODULES]
 
 # cudaGraphNodeType, by value
 NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
@@ -46,6 +53,11 @@ NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_even
 # life of the process, so a stream per StepGraph would leak one workspace
 # per graph a flow recaptures after each LHS update.
 _CAPTURE_STREAMS: dict = {}
+# StepGraphs finalized while a capture is under way (the cyclic garbage
+# collector may run at any allocation inside a step): destroying a graph
+# then would invalidate that capture, so they wait here and are released
+# when it ends.
+_DEFERRED: list = []
 _BUILD_STAGES = ("", "the conditional handle", "the first control node",
                  "the WHILE node", "the step's child graph", "the body's control node",
                  "instantiation")
@@ -77,7 +89,8 @@ class StepGraph:
     The SpMV wrappers count a launch where they record it into the
     graph.  Those counts are taken back after the capture, which runs
     nothing, and added again for every step the card runs from the graph,
-    so ``ops.*.launches`` count what ran on the card.
+    so ``ops.*.launches`` (and ``launches_by_mode``) count what ran on
+    the card.
     """
 
     def __init__(self, step, device, pool=None):
@@ -166,8 +179,10 @@ class StepGraph:
         return steps, reads + 1
 
     def _count(self, steps: int) -> None:
-        for mod, k in self._per_replay:
+        for mod, k, by_mode in self._per_replay:
             mod.launches += k * steps
+            for mode, km in by_mode.items():
+                mod.launches_by_mode[mode] += km * steps
 
     def _warm_up(self) -> None:
         index = self.device.index
@@ -192,7 +207,7 @@ class StepGraph:
         t0 = time.perf_counter()
         torch.cuda.synchronize(self.device)
         reserved = torch.cuda.memory_reserved(self.device)
-        before = [mod.launches for mod in KERNEL_MODULES]
+        before = _counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             with torch.cuda.stream(self._stream):
@@ -206,10 +221,17 @@ class StepGraph:
                 "StepGraph: capturing the step failed (a step must not make "
                 "the host wait for the card)") from exc
         finally:
-            recorded = [mod.launches - b for mod, b in zip(KERNEL_MODULES, before)]
-            for mod, b in zip(KERNEL_MODULES, before):
+            while _DEFERRED:
+                _DEFERRED.pop().release()
+            recorded = [(n - b, {m: c - bm.get(m, 0) for m, c in modes.items()})
+                        for (n, modes), (b, bm) in zip(_counts(), before)]
+            for mod, (b, bm) in zip(KERNEL_MODULES, before):
                 mod.launches = b
-        self._per_replay = tuple((m, k) for m, k in zip(KERNEL_MODULES, recorded) if k)
+                if bm:
+                    mod.launches_by_mode.update(bm)
+        self._per_replay = tuple((mod, k, {m: c for m, c in by_mode.items() if c})
+                                 for mod, (k, by_mode) in zip(KERNEL_MODULES, recorded)
+                                 if k)
         self.graph = graph
         self.captures += 1
         self.pool_mib = (torch.cuda.memory_reserved(self.device) - reserved) / 2**20
@@ -255,9 +277,14 @@ class StepGraph:
         self.graph = None
 
     def __del__(self):
-        # an owner dropped without release(): free the native graph too
-        if self._loop is not None:
-            try:
-                self.release()
-            except Exception:  # noqa: BLE001 — interpreter shutdown
-                pass
+        # an owner dropped without release(): free the native graph too,
+        # after the capture under way if there is one
+        if self._loop is None and self.graph is None:
+            return
+        try:
+            if torch.cuda.is_current_stream_capturing():
+                _DEFERRED.append(self)
+                return
+            self.release()
+        except Exception:  # noqa: BLE001 — interpreter shutdown
+            pass

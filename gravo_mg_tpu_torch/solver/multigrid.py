@@ -8,8 +8,10 @@ Counterpart of ``gravo_mg_tpu/solver/multigrid.py`` (the reference's
   spectral bounds and the regularized coarse inverse; the device receives
   only the finished layout tensors;
 * V/F/W cycles (reference ``:1059-1192``) recurse over the levels in
-  eager torch: degree-4 Chebyshev smoothing around the SpMV kernels, a
-  coarse inverse apply with one refinement step;
+  eager torch: degree-4 Chebyshev smoothing, the residual and the
+  prolongation's add, each one SpMV launch with its epilogue on the
+  sliced layouts (``sparse.cheb_step``, ``spmv_residual``, ``spmv_add``),
+  a coarse inverse apply with one refinement step;
 * the iterate-to-tolerance loop either runs on the host, one cycle ahead
   of the residual it waits for (``mode="traced"``), or is the JAX
   package's ``fused_solve``: its ``while_loop`` as one CUDA graph, a
@@ -47,7 +49,7 @@ from ..sparse import (
     sliced_from_scipy,
     sliced_plan_arrays,
     sliced_rule,
-    spmv,
+    spmv_residual,
 )
 from .device_loop import StepGraph
 from .residual import residual_denominator, residual_numerator
@@ -145,18 +147,18 @@ def _cycle(cfg: SolverConfig, levels, coarse, b, x, k: int, kind: int):
     """Recursive cycle (kind: 0=V, 1=F, 2=W)."""
     ops = levels[k]
     x = _smooth(cfg, ops, b, x, cfg.pre_iters)
-    r = b - spmv(ops.A, x)
+    r = spmv_residual(ops.A, x, b)
     rc = ops.U.restrict(r)
     if k == cfg.num_levels - 1:
         e = _coarse_correction(cfg, coarse, rc)
     else:
         e = _cycle(cfg, levels, coarse, rc, torch.zeros_like(rc), k + 1, kind)
-    x = x + ops.U.prolong(e)
+    x = ops.U.prolong_add(e, x)
     x = _smooth(cfg, ops, b, x, cfg.post_iters)
     if kind != int(CycleType.V):
         # F- and W-cycles run a second correction pass
         # (multigrid_solver.cpp:1091-1192); F recurses into V, W into W.
-        r = b - spmv(ops.A, x)
+        r = spmv_residual(ops.A, x, b)
         rc = ops.U.restrict(r)
         if k == cfg.num_levels - 1:
             e = _coarse_correction(cfg, coarse, rc)
@@ -165,7 +167,7 @@ def _cycle(cfg: SolverConfig, levels, coarse, b, x, k: int, kind: int):
             e = _cycle(
                 cfg, levels, coarse, rc, torch.zeros_like(rc), k + 1, kind2
             )
-        x = x + ops.U.prolong(e)
+        x = ops.U.prolong_add(e, x)
         x = _smooth(cfg, ops, b, x, cfg.post_iters)
     return x
 

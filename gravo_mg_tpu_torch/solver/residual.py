@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..sparse import spmv
+from ..sparse import spmv, spmv_residual
 
 
 def _as_2d(v):
@@ -20,8 +20,11 @@ def _as_2d(v):
 
 
 def residual_numerator(A, M, Minv_diag, b, x, criteria: int):
-    """Per-column residual norms (numerators) for each criterion."""
-    r = _as_2d(spmv(A, x) - b)
+    """Per-column residual norms (numerators) for each criterion.  The
+    residual is ``b - A x``, one SpMV launch on the sliced layouts; the JAX
+    package forms ``A x - b``, which is its exact negation, and every
+    criterion is even in r."""
+    r = _as_2d(spmv_residual(A, x, b))
     if criteria == 0:
         return torch.linalg.vector_norm(r, dim=0)
     if criteria == 1:

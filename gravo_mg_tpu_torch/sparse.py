@@ -36,11 +36,12 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .ops import sliced_diag_spmv as _sdiag
+from .ops import sliced_spmv as _sliced
 from .ops.diag_spmv import diag_spmv as _diag_kernel
+from .ops.epilogue import epilogue_plain
 from .ops.shuffle_spmv import shuffle_spmv as _shuffle_kernel
-from .ops.sliced_diag_spmv import sliced_diag_spmv as _sliced_diag_kernel
 from .ops.sliced_spmv import SLICE
-from .ops.sliced_spmv import sliced_spmv as _sliced_kernel
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -506,15 +507,69 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
         return A(x)
     _check_cols(A, x)
     if isinstance(A, SlicedEll):
-        return _sliced_kernel(A.slice_ptr, A.col, A.val, x, A.nrows, A.tpr)
+        return _sliced.sliced_spmv(A.slice_ptr, A.col, A.val, x, A.nrows, A.tpr)
     if isinstance(A, SlicedDiag):
-        return _sliced_diag_kernel(A.slice_ptr, A.base, A.delta, A.val, A.wide_ptr,
-                                   A.wide_col, x, A.nrows, A.wmax)
+        return _sdiag.sliced_diag_spmv(*_diag_layout_args(A), x, A.nrows)
     if isinstance(A, ShuffleEll):
         return _shuffle_kernel(A.q, A.r, A.v, x, A.nrows)
     if isinstance(A, DiagEll):
         return _diag_kernel(A.start, A.r, A.v, x, A.tg, A.nrows)
     return ell_spmv(A, x)
+
+
+# The operations of the multigrid cycle around an SpMV.  SlicedEll and
+# SlicedDiag compute each in one launch, the SpMV kernel with an epilogue
+# (ops/epilogue.py); every other operator (a callable such as the halo
+# path's PartitionedOp, the JAX package's layouts, EllMatrix) takes the
+# plain composition over spmv.  The choice is by type: a kernel that fails
+# raises.
+
+
+def _diag_layout_args(A):
+    return A.slice_ptr, A.base, A.delta, A.val, A.wide_ptr, A.wide_col
+
+
+def spmv_residual(A, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``b - A @ x``."""
+    if isinstance(A, SlicedEll):
+        _check_cols(A, x)
+        return _sliced.sliced_spmv_residual(A.slice_ptr, A.col, A.val, x, b,
+                                            A.nrows, A.tpr)
+    if isinstance(A, SlicedDiag):
+        _check_cols(A, x)
+        return _sdiag.sliced_diag_spmv_residual(*_diag_layout_args(A), x, b, A.nrows)
+    return epilogue_plain("residual", spmv(A, x), b=b)
+
+
+def spmv_add(A, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``z + A @ x``."""
+    if isinstance(A, SlicedEll):
+        _check_cols(A, x)
+        return _sliced.sliced_spmv_add(A.slice_ptr, A.col, A.val, x, z, A.nrows,
+                                       A.tpr)
+    if isinstance(A, SlicedDiag):
+        _check_cols(A, x)
+        return _sdiag.sliced_diag_spmv_add(*_diag_layout_args(A), x, z, A.nrows)
+    return epilogue_plain("add", spmv(A, x), z=z)
+
+
+def cheb_step(A, dinv: torch.Tensor, b: torch.Tensor, x: torch.Tensor, d, c1,
+              c2: float, keep_d: bool = True):
+    """One Chebyshev (or Jacobi) smoother step: ``r = b - A x``, ``d = c1 d
+    + (c2 dinv) r`` (``(c2 dinv) r`` where ``c1`` is None: a first step,
+    which takes no d), ``x + d``.  ``dinv`` is (n,), broadcast over the
+    columns.  Returns ``(x + d, d)``, d None where ``keep_d`` is false;
+    the kernels write a given d in place."""
+    if isinstance(A, SlicedEll):
+        _check_cols(A, x)
+        return _sliced.sliced_spmv_cheb(A.slice_ptr, A.col, A.val, x, b, dinv, d,
+                                        c1, c2, A.nrows, A.tpr, keep_d)
+    if isinstance(A, SlicedDiag):
+        _check_cols(A, x)
+        return _sdiag.sliced_diag_spmv_cheb(*_diag_layout_args(A), x, b, dinv, d,
+                                            c1, c2, A.nrows, keep_d)
+    return epilogue_plain("cheb", spmv(A, x), b=b, dinv=dinv, x=x, d=d, c1=c1,
+                          c2=c2, keep_d=keep_d)
 
 
 def _shuffle_layout(rows: np.ndarray, cols: np.ndarray, nr: int, nc: int,
@@ -662,6 +717,10 @@ class ShuffleTransfer:
     def prolong(self, e):
         return spmv(self.U, e)
 
+    def prolong_add(self, e, x):
+        """``x + U e``: the coarse correction, in one launch on a sliced U."""
+        return spmv_add(self.U, e, x)
+
     def restrict(self, r):
         return spmv(self.UT, r)
 
@@ -693,6 +752,10 @@ class Prolongation:
     def prolong(self, e: torch.Tensor) -> torch.Tensor:
         w = self.weights if e.ndim == 1 else self.weights[..., None]
         return (w * e[self.cols]).sum(0)
+
+    def prolong_add(self, e: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``x + U e`` (plain: this transfer runs no kernel)."""
+        return epilogue_plain("add", self.prolong(e), z=x)
 
     def restrict(self, r: torch.Tensor) -> torch.Tensor:
         w = self.weights if r.ndim == 1 else self.weights[..., None]

@@ -22,6 +22,8 @@ workers run this file as a script:
     python tests/test_torch_cuda.py nccl-halo-worker <rank> <world> <init file>
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -184,7 +186,7 @@ def _torus(nu, nv):
 SLICED_DIAG_MATRICES = {
     "banded": (1000, 1000, 7000, 30, 0),
     "large": (70000, 70000, 400000, 100, 1),
-    "ring_wraps": (1 << 20, 1 << 20, 4 << 20, 64, 12),   # staged ring refills
+    "ring_wraps": (1 << 20, 1 << 20, 4 << 20, 64, 12),   # 1M rows
     "all_wide": (5000, 5000, 10000, None, 2),
     "restriction": (20000, 3000, 60000, 20, 3),
     "prolongation": (3000, 20000, 24000, 40, 4),
@@ -202,14 +204,12 @@ def _sliced_diag_matrix(kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", sdmod.VARIANTS)
 @pytest.mark.parametrize("d", [1, 3, 6])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", list(SLICED_DIAG_MATRICES) + ["torus"])
-def test_sliced_diag_kernel_matches_plain(cuda, kind, dtype, d, variant):
-    """Both variants (direct, and staged through shared memory) against
-    the plain version and a host f64 product, on delta, wide and empty
-    slices."""
+def test_sliced_diag_kernel_matches_plain(cuda, kind, dtype, d):
+    """The kernel against the plain version and a host f64 product, on
+    delta, wide and empty slices."""
     A = _sliced_diag_matrix(kind)
     op = sparse.sliced_diag_from_scipy(A, dtype=dtype).to(cuda)
     info = op.info()
@@ -220,7 +220,7 @@ def test_sliced_diag_kernel_matches_plain(cuda, kind, dtype, d, variant):
     x = _x(A.shape[1], d, dtype, 3, cuda)
     before = sdmod.launches
     y = sdmod.sliced_diag_spmv(op.slice_ptr, op.base, op.delta, op.val, op.wide_ptr,
-                               op.wide_col, x, op.nrows, op.wmax, variant)
+                               op.wide_col, x, op.nrows)
     torch.cuda.synchronize()
     assert sdmod.launches == before + 1
     ref = sdmod.sliced_diag_spmv_plain(op.slice_ptr, op.base, op.delta, op.val,
@@ -229,7 +229,124 @@ def test_sliced_diag_kernel_matches_plain(cuda, kind, dtype, d, variant):
     _close(y, ref, dtype)
     host = torch.from_numpy(A @ x.double().cpu().numpy()).to(cuda, dtype)
     _close(y, host, dtype)
-    _close(sparse.spmv(op, x), host, dtype)     # the preferred variant
+    _close(sparse.spmv(op, x), host, dtype)
+
+
+# ---- the epilogues: one launch per operation of the cycle ------------------
+
+EPILOGUE_OPS = ("residual", "add", "cheb_first", "cheb_next", "jacobi")
+
+
+def _epilogue_case(op, n, m, d, dtype, device, seed=11):
+    """The epilogue operands of ``op`` for an (n, m) operator (square for
+    every op but add): (the fused call's keyword arguments, mode)."""
+    rng = np.random.default_rng(seed)
+
+    def v(rows, scale=1.0):
+        a = scale * rng.standard_normal((rows,) if d == 1 else (rows, d))
+        return torch.from_numpy(a).to(device, dtype)
+
+    if op == "residual":
+        return {"b": v(n)}, "residual"
+    if op == "add":
+        return {"z": v(n)}, "add"
+    kw = {"b": v(n), "dinv": torch.from_numpy(0.5 + rng.random(n)).to(device, dtype),
+          "d": None, "c1": None, "c2": 0.8391}
+    if op == "cheb_next":
+        kw.update(d=v(n, 0.1), c1=0.3717)
+    return kw, "cheb"
+
+
+def _check_epilogue(spmv_plain_mode, fused, op, x, kw, mode, mod):
+    """``fused`` (the wrapper with epilogue ``mode``) against the kernel's
+    own plain-mode SpMV followed by the torch ops of ``epilogue_plain``,
+    bit for bit; each call adds one launch, to its mode."""
+    from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain
+
+    y = spmv_plain_mode(x)
+    before, by_mode = mod.launches, dict(mod.launches_by_mode)
+    if mode == "cheb":
+        keep = op != "jacobi"
+        d_in = None if kw["d"] is None else kw["d"].clone()
+        x_out, d_out = fused(x, kw["b"], kw["dinv"], d_in, kw["c1"], kw["c2"], keep)
+        ref_x, ref_d = epilogue_plain("cheb", y, x=x, **kw)
+        assert torch.equal(x_out, ref_x)
+        if keep:
+            assert torch.equal(d_out, ref_d)
+            if d_in is not None:
+                assert d_out is d_in          # written in place
+        else:
+            assert d_out is None
+    else:
+        vec = kw["b"] if mode == "residual" else kw["z"]
+        got = fused(x, vec)
+        assert got.shape == y.shape and got.dtype == y.dtype
+        assert torch.equal(got, epilogue_plain(mode, y, **kw))
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    assert mod.launches_by_mode[mode] == by_mode[mode] + 1
+    assert sum(mod.launches_by_mode.values()) == sum(by_mode.values()) + 1
+
+
+# square operators (every op), and rectangular ones for the add
+SLICED_EPILOGUE = [(op, case) for op in EPILOGUE_OPS
+                   for case in ((1000, 1000, 7000, 30, 0), (130, 130, 400, None, 5),
+                                (300, 300, 0, None, 10))] + [
+    ("add", (20000, 3000, 60000, 20, 3)), ("add", (200, 77, 500, None, 9))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op,case", SLICED_EPILOGUE)
+def test_sliced_epilogue_matches_kernel_then_torch(cuda, op, case, dtype, d):
+    """Every epilogue of sliced_spmv at every threads-per-row count, with
+    nrows not a multiple of 32 and d = 9 over two grid columns, equal bit
+    for bit to the plain-mode kernel followed by the torch ops."""
+    A = _sliced_matrix(*case)
+    n, m = A.shape
+    o = sparse.sliced_from_scipy(A, dtype=dtype).to(cuda)
+    x = _x(m, d, dtype, 2, cuda)
+    kw, mode = _epilogue_case(op, n, m, d, dtype, cuda)
+    for tpr in slmod.TPRS:
+        args = (o.slice_ptr, o.col, o.val)
+        fused = {
+            "residual": lambda x, b: slmod.sliced_spmv_residual(*args, x, b, n, tpr),
+            "add": lambda x, z: slmod.sliced_spmv_add(*args, x, z, n, tpr),
+            "cheb": lambda x, b, dinv, dd, c1, c2, keep: slmod.sliced_spmv_cheb(
+                *args, x, b, dinv, dd, c1, c2, n, tpr, keep),
+        }[mode]
+        _check_epilogue(lambda x: slmod.sliced_spmv(*args, x, n, tpr), fused, op, x,
+                        kw, mode, slmod)
+
+
+SDIAG_EPILOGUE = [(op, kind) for op in EPILOGUE_OPS
+                  for kind in ("banded", "all_wide", "small", "empty_slices",
+                               "torus")] + [("add", "restriction"), ("add", "cols_77")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op,kind", SDIAG_EPILOGUE)
+def test_sliced_diag_epilogue_matches_kernel_then_torch(cuda, op, kind, dtype, d):
+    """Every epilogue of sliced_diag_spmv on delta, wide, mixed and empty
+    slices, nrows not a multiple of 32, d = 9 over three grid columns:
+    equal bit for bit to the plain-mode kernel followed by the torch ops."""
+    A = _sliced_diag_matrix(kind)
+    n, m = A.shape
+    o = sparse.sliced_diag_from_scipy(A, dtype=dtype).to(cuda)
+    x = _x(m, d, dtype, 2, cuda)
+    kw, mode = _epilogue_case(op, n, m, d, dtype, cuda)
+    args = (o.slice_ptr, o.base, o.delta, o.val, o.wide_ptr, o.wide_col)
+    fused = {
+        "residual": lambda x, b: sdmod.sliced_diag_spmv_residual(*args, x, b, n),
+        "add": lambda x, z: sdmod.sliced_diag_spmv_add(*args, x, z, n),
+        "cheb": lambda x, b, dinv, dd, c1, c2, keep: sdmod.sliced_diag_spmv_cheb(
+            *args, x, b, dinv, dd, c1, c2, n, keep),
+    }[mode]
+    _check_epilogue(lambda x: sdmod.sliced_diag_spmv(*args, x, n), fused, op, x, kw,
+                    mode, sdmod)
 
 
 @pytest.mark.cuda
@@ -262,23 +379,32 @@ def test_wrappers_validate_operands(cuda):
     op = sparse.sliced_diag_from_scipy(_sliced_diag_matrix("banded")).to(cuda)
     args = [op.slice_ptr, op.base, op.delta, op.val, op.wide_ptr, op.wide_col]
     x = torch.zeros(op.ncols, device=cuda)
-    sdmod.sliced_diag_spmv(*args, x, op.nrows, op.wmax)
+    sdmod.sliced_diag_spmv(*args, x, op.nrows)
     for k, bad in ((0, op.slice_ptr.int()), (1, op.base.long()), (2, op.delta.int()),
                    (5, op.wide_col.long())):
         with pytest.raises(TypeError):
-            sdmod.sliced_diag_spmv(*args[:k], bad, *args[k + 1:], x, op.nrows, op.wmax)
+            sdmod.sliced_diag_spmv(*args[:k], bad, *args[k + 1:], x, op.nrows)
     with pytest.raises(TypeError):
-        sdmod.sliced_diag_spmv(*args, x.double(), op.nrows, op.wmax)
+        sdmod.sliced_diag_spmv(*args, x.double(), op.nrows)
     with pytest.raises(ValueError):
-        sdmod.sliced_diag_spmv(*args, x, op.nrows + 64, op.wmax)   # slices disagree
+        sdmod.sliced_diag_spmv(*args, x, op.nrows + 64)   # slices disagree
     with pytest.raises(ValueError):
-        sdmod.sliced_diag_spmv(*args[:3], op.val[:-32], *args[4:], x, op.nrows, op.wmax)
+        sdmod.sliced_diag_spmv(*args[:3], op.val[:-32], *args[4:], x, op.nrows)
     with pytest.raises(ValueError):
-        sdmod.sliced_diag_spmv(*args, x, op.nrows, op.wmax, "tiled")
+        sdmod.sliced_diag_spmv(*args[:5], op.wide_col.cpu(), x, op.nrows)
+    # the epilogues' operands: shape, dtype, device, and d never sharing x's memory
+    b = torch.zeros(op.nrows, device=cuda)
+    dinv = torch.ones(op.nrows, device=cuda)
     with pytest.raises(ValueError):
-        sdmod.sliced_diag_spmv(*args[:5], op.wide_col.cpu(), x, op.nrows, op.wmax)
-    with pytest.raises(RuntimeError):       # a slice too wide for a stage
-        sdmod.sliced_diag_spmv(*args, x, op.nrows, 1 << 12, "staged")
+        sdmod.sliced_diag_spmv_residual(*args, x, b[:-1], op.nrows)
+    with pytest.raises(TypeError):
+        sdmod.sliced_diag_spmv_add(*args, x, b.double(), op.nrows)
+    with pytest.raises(ValueError):
+        sdmod.sliced_diag_spmv_add(*args, x, b.cpu(), op.nrows)
+    with pytest.raises(ValueError):     # a step with c1 needs the previous d
+        sdmod.sliced_diag_spmv_cheb(*args, x, b, dinv, None, 0.5, 1.0, op.nrows)
+    with pytest.raises(ValueError):
+        sdmod.sliced_diag_spmv_cheb(*args, x, b, dinv, x, 0.5, 1.0, op.nrows)
     h = sparse.sliced_from_scipy(_sliced_matrix(200, 77, 500, None, 9)).to(cuda)
     out_row = torch.arange(200, dtype=torch.int32, device=cuda)
     hb, y = torch.zeros(77, device=cuda), torch.zeros(300, device=cuda)
@@ -291,11 +417,17 @@ def test_wrappers_validate_operands(cuda):
         hmod.halo_spmv(h.slice_ptr, h.col, h.val, out_row, hb, y.double())
     with pytest.raises(ValueError):
         hmod.halo_spmv(h.slice_ptr, h.col, h.val, out_row[:100], hb, y)   # slices
+    with pytest.raises(ValueError):     # the Chebyshev step needs a square A
+        slmod.sliced_spmv_cheb(h.slice_ptr, h.col, h.val, torch.zeros(77, device=cuda),
+                               torch.zeros(200, device=cuda),
+                               torch.ones(200, device=cuda), None, None, 1.0, 200)
 
 
 def _reset_launches():
     smod.launches = dmod.launches = slmod.launches = sdmod.launches = 0
     hmod.launches = 0
+    for mod in (slmod, sdmod):
+        mod.launches_by_mode.update(dict.fromkeys(mod.launches_by_mode, 0))
 
 
 @pytest.mark.cuda
@@ -664,6 +796,57 @@ def test_fused_graph_memory_flat_over_update_lhs(cuda, fused_torus):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 1), (torch.float64, 3)])
+def test_epilogue_cycle_and_fused_solve_match_plain_compositions(
+        cuda, fused_torus, dtype, d):
+    """65k torus: one V-cycle and a fused solve with the epilogue launches
+    against the same with the plain compositions patched in: iterate,
+    cycles and trace bitwise equal; the same SpMV launch counts (10 of
+    sliced_diag_spmv a cycle), now carried by the epilogues (8 Chebyshev
+    steps and 2 residuals on A0, a prolongation add per level), and fewer
+    kernels in the captured cycle.  The plain compositions are the ones
+    chip_smoke.py patches in for its own comparison."""
+    from chip_smoke import plain_compositions
+    from gravo_mg_tpu_torch.solver import multigrid as mg
+
+    V, S, M, neigh, noise = fused_torus
+    lhs = (1e-6 * M + S).tocsr()
+    rhs = M @ (noise[:, 0] if d == 1 else noise)
+    ctx = _fused_solver(V, M, neigh, dtype)._context(lhs)
+    b = torch.from_numpy(rhs).to(cuda, dtype)
+    x0 = torch.from_numpy(1e-3 * noise[:, :d].reshape(b.shape)).to(cuda, dtype)
+    runs = {}
+    for how in ("epilogues", "plain"):
+        ctx.release_graphs()
+        with plain_compositions() if how == "plain" else contextlib.nullcontext():
+            x1 = mg.cycle_step(ctx.cfg, ctx.levels, ctx.coarse_op, b, x0)
+            ctx.solve(rhs, mode="fused")                 # cold: captures
+            _reset_launches()
+            x, iters, res, trace = ctx.solve(rhs, mode="fused")
+            (loop,) = ctx._fused.values()
+            runs[how] = (x1, x, iters, res, [r for _, r in trace], ctx.dispatched,
+                         sdmod.launches, slmod.launches, dict(sdmod.launches_by_mode),
+                         dict(slmod.launches_by_mode), loop.graph.step_nodes["kernel"])
+    (x1, x, iters, res, trace, ran, n_sd, n_sl, sd_modes, sl_modes, nodes) = \
+        runs["epilogues"]
+    p = runs["plain"]
+    assert torch.equal(x1, p[0])
+    assert np.array_equal(x, p[1]) and iters == p[2] and res == p[3] and trace == p[4]
+    assert ran == p[5] == iters > 1 and (n_sd, n_sl) == (p[6], p[7])
+    assert n_sd == 10 * ran
+    assert sd_modes == {"plain": 0, "residual": 2 * ran, "add": 0, "cheb": 8 * ran}
+    assert p[8] == {"plain": 10 * ran, "residual": 0, "add": 0, "cheb": 0}
+    levels = len(ctx.levels)
+    assert sl_modes["add"] == levels * ran
+    assert sl_modes["cheb"] == 8 * (levels - 1) * ran
+    assert sl_modes["residual"] == (levels - 1) * ran
+    assert nodes < p[10], (nodes, p[10])
+    traced = ctx.solve(rhs, mode="traced")      # the host loop agrees
+    assert np.array_equal(traced[0], x) and traced[1] == iters
+    ctx.release_graphs()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("poisson,max_iter", [(True, 100), (False, 2000)])
 def test_cg_graph_matches_eager_unit(cuda, fused_torus, poisson, max_iter,
                                      monkeypatch):
@@ -875,6 +1058,38 @@ def test_halo_fused_step_that_syncs_raises(cuda, halo_torus, monkeypatch):
         hctx.solve(rhs, tol=1e-5, max_iter=50)
     # the warm-up cycle ran; the failed capture's launches were taken back
     assert sdmod.launches == per_cycle > 0
+
+
+@pytest.mark.cuda
+def test_step_graph_finalized_during_a_capture_waits_for_it(cuda):
+    """A StepGraph whose last reference goes while another step is being
+    captured (the cyclic garbage collector may run at any allocation) keeps
+    its graph until that capture ends, and is released then: destroying a
+    graph inside a capture would invalidate the capture."""
+    import gc
+
+    from gravo_mg_tpu_torch.solver import device_loop
+
+    x = torch.ones(1000, device=cuda)
+    y = torch.zeros_like(x)
+    old = [device_loop.StepGraph(lambda: y.add_(x), cuda)]
+    old[0].run(3)                       # an eager step, a capture, 2 replays
+    assert old[0].graph is not None
+    calls = []
+
+    def step():
+        calls.append(1)
+        y.mul_(0.5)
+        if len(calls) == 2:             # the capture: drop the old graph here
+            old.clear()
+            gc.collect()
+
+    g = device_loop.StepGraph(step, cuda)
+    g.run(3)
+    torch.cuda.synchronize()
+    assert not old and device_loop._DEFERRED == []
+    assert g.captures == 1 and g.replays == 2
+    assert torch.equal(y, torch.full_like(x, 3.0 * 0.125))
 
 
 @pytest.mark.cuda
