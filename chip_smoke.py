@@ -34,9 +34,17 @@ phase, counted from 0; any failure exits non-zero before the last line):
    path's parts (1M over 4 partitions): the stacked A0 interior
    (sliced_diag_spmv), the stacked U0^T interior (sliced_spmv) and the
    compact halo parts of A0 and U0^T (halo_spmv), each against its plain
-   version and cuSPARSE on the same CSR, with its bound, beside the
-   route they replaced, the old stacked A0 ShuffleEll through
-   shuffle_spmv;
+   version and cuSPARSE on the same CSR, with its bound; the halo path's
+   operations (a Chebyshev step, first and later, and the residual on the
+   partitioned A0, the add on the partitioned U0; d = 1 f32 and d = 3
+   f64): each the interior launch under its row mask and halo_spmv in the
+   same mode, held bitwise equal to the partitioned apply followed by the
+   torch ops and each launch alone to its plain-mode launch followed by
+   the torch ops, timed beside the bare apply, the unmasked interior
+   launch, halo_spmv in plain mode, the plain versions and cuSPARSE's
+   addmv/addmm on the whole partitioned operator's CSR, with bounds; and
+   the route the halo parts replaced, the old stacked A0 ShuffleEll
+   through shuffle_spmv;
 3. smoothing: the 10k icosphere(5, bump=0.15) smoothing solve
    (M + 1e-3 S, rhs M @ V) through MultigridSolver(device="cuda"),
    checked against a host direct solve;
@@ -65,7 +73,11 @@ phase, counted from 0; any failure exits non-zero before the last line):
    each, the fused iterate held bitwise equal to the traced one and both
    against phase poisson's solution, host reads, graph launches and the
    WHILE graph's device ms as in phase poisson, one warm solve of each
-   under torch.profiler;
+   under torch.profiler; then the same fused solve with the plain
+   compositions patched in, its iterate, trace, cycles and residual held
+   bitwise equal, the two WHILE graphs' kernels, nodes, device ms and
+   warm ms in turns, the captured halo cycle at most 230 kernels and
+   halo_spmv launched in every epilogue;
    halo-multigpu: where the machine has 2 or more GPUs, the same system
    over one NCCL rank per GPU (4 ranks, or 2 with fewer than 4 GPUs;
    ``chip_smoke.py --halo-rank`` processes, ``file://`` rendezvous), fused
@@ -120,6 +132,7 @@ exits non-zero.
 
 import atexit
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -298,10 +311,13 @@ class Launches:
 def plain_compositions():
     """The cycle's operations as the kernel's plain SpMV followed by the
     torch ops (``epilogue_plain``), in place of the epilogue launches: the
-    reference a fused solve is held against bit for bit.  Patched in here;
-    the package has no switch for it."""
+    reference a fused solve is held against bit for bit.  On the halo path
+    the SpMV is the PartitionedOp's plain apply (its interior, then
+    halo_spmv's add), and the halo solver's residual numerator is patched
+    too.  Patched in here; the package has no switch for it."""
     from gravo_mg_tpu_torch import sparse
     from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain
+    from gravo_mg_tpu_torch.parallel import halo
     from gravo_mg_tpu_torch.solver import multigrid as mg
     from gravo_mg_tpu_torch.solver import residual, smoothers
 
@@ -317,6 +333,7 @@ def plain_compositions():
 
     patches = [(smoothers, "cheb_step", cheb_step), (mg, "spmv_residual", spmv_residual),
                (residual, "spmv_residual", spmv_residual),
+               (halo, "spmv_residual", spmv_residual),
                (sparse.ShuffleTransfer, "prolong_add", prolong_add)]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, fn in patches:
@@ -762,7 +779,7 @@ def main():
     from gravo_mg_tpu_torch.ops import shuffle_spmv as smod
     from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
     from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
-    from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain
+    from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain, masked_rows
     from gravo_mg_tpu_torch.parallel.halo import (
         PartitionedOp, _build_dist_op, _halo_plan, make_solver_mesh, partition_rows,
     )
@@ -1416,9 +1433,241 @@ def main():
             if not rel <= TOL_F64:
                 raise AssertionError(f"{kind} halo {label} f64 disagrees")
             del x, v64, lib, csr
+        # The halo path's operations (1M over 4 partitions, as phase halo
+        # runs them): a later and a first Chebyshev step and the residual of
+        # the partitioned A0 (stacked interior SlicedDiag), the
+        # prolongation's add of the partitioned U0 (SlicedEll); d = 1 f32
+        # and d = 3 f64.  Each operation ("fused") is two launches, the
+        # interior under its row mask and halo_spmv in the same mode, held
+        # bitwise equal to the partitioned apply followed by the torch ops
+        # ("composed"); each launch alone bitwise equal to its plain-mode
+        # launch followed by the torch ops on its rows; all against the
+        # plain versions within tolerance.  Timed in turns beside the bare
+        # apply, the interior launch unmasked, halo_spmv in plain mode, the
+        # plain versions and, for the residual and the add, cuSPARSE's
+        # addmv/addmm on the whole partitioned operator's CSR (no single
+        # PyTorch call computes a Chebyshev step).
+        U0_csr = ctx.U_csr[0]
+        pU0 = PartitionedOp(U0_csr, _halo_plan(U0_csr, 4, nl0, nl1), mesh4, P1, P0,
+                            ctx.dtype)
+
+        def stacked_csr(csr, nl_r, p_r, nl_c, p_c):
+            """A global csr in the partitioned layout (global row r at
+            (r // nl) * stride + r % nl; columns likewise), f32 values as
+            the layouts hold them."""
+            coo = csr.tocoo()
+            return sp.csr_matrix(
+                (coo.data.astype(np.float32),
+                 ((coo.row // nl_r) * p_r + coo.row % nl_r,
+                  (coo.col // nl_c) * p_c + coo.col % nl_c)),
+                shape=(4 * p_r, 4 * p_c))
+
+        def halo_epilogue_case(label, pop, whole, op, dtype, d):
+            item = 4 if dtype == torch.float32 else 8
+            tol = TOL_F32 if item == 4 else TOL_F64
+            p = copy.copy(pop)            # the same partitions, values in dtype
+            p.A = dataclasses.replace(pop.A, val=pop.A.val.to(dtype))
+            p.Ah = dataclasses.replace(pop.Ah, val=pop.Ah.val.to(dtype))
+            p._buffers = {}
+            L, H, mask = p.A, p.Ah, p.row_mask
+            n, hrows, o = L.nrows, H.nrows, p.out_row.long()
+            diag = isinstance(L, SlicedDiag)
+            iname = "sliced_diag_spmv" if diag else "sliced_spmv"
+            hargs = (H.slice_ptr, H.col, H.val, p.out_row)
+
+            def vec(rows, scale=1.0):
+                v = scale * rng.standard_normal((rows,) if d == 1 else (rows, d))
+                return torch.from_numpy(v).to(dev, dtype)
+
+            def interior_plain(v):
+                if diag:
+                    return sdmod.sliced_diag_spmv_plain(
+                        L.slice_ptr, L.base, L.delta, L.val, L.wide_ptr, L.wide_col, v,
+                        n)
+                return slmod.sliced_spmv_plain(L.slice_ptr, L.col, L.val, v, n)
+
+            x = vec(L.ncols)
+            first = op == "cheb_first"
+            vb = n * d * item                   # one vector the shape of y
+            if op in ("add", "residual"):
+                mode = op
+                v = vec(n)
+                kw = {"b" if op == "residual" else "z": v}
+                extra, extra_rows = vb, hrows * d * item
+                W = csr_tensor(whole, dtype, dev)
+                addm = torch.addmv if d == 1 else torch.addmm
+                if op == "add":
+                    fused = lambda: p.add(x, v)   # noqa: E731
+                    interior = lambda m: sparse.spmv_add(L, x, v, m)   # noqa: E731
+                    library = lambda: addm(v, W, x)   # noqa: E731
+                else:
+                    fused = lambda: p.residual(x, v)   # noqa: E731
+                    interior = lambda m: sparse.spmv_residual(L, x, v, m)   # noqa: E731
+                    library = lambda: addm(v, W, x, alpha=-1)   # noqa: E731
+
+                def halo_mode(hb, y, dbuf):
+                    fn = hmod.halo_spmv_add if op == "add" else hmod.halo_spmv_residual
+                    return fn(*hargs, hb, y, v, H.tpr), None
+            else:
+                mode = "cheb"
+                b, d_prev = vec(n), vec(n, 0.1)
+                dinv = torch.from_numpy(0.5 + rng.random(n)).to(dev, dtype)
+                c1 = None if first else EPI_C1
+                kw = {"b": b, "dinv": dinv, "x": x, "d": None if first else d_prev,
+                      "c1": c1, "c2": EPI_C2}
+                # b, x, dinv read, d written (and read unless first)
+                extra = 2 * vb + n * item + (0 if first else vb)
+                extra_rows = hrows * (3 * d * item + item + (0 if first else d * item))
+                d_work = d_prev.clone()          # the timed calls write it in place
+                library = None
+                fused = lambda: p.cheb(   # noqa: E731
+                    dinv, b, x, None if first else d_work, c1, EPI_C2)
+                interior = lambda m: sparse.cheb_step(   # noqa: E731
+                    L, dinv, b, x, None if first else d_work, c1, EPI_C2, True, m)
+
+                def halo_mode(hb, y, dbuf):
+                    return hmod.halo_spmv_cheb(*hargs, hb, y, x, b, dinv, dbuf, c1,
+                                               EPI_C2, H.tpr)
+
+            def once():
+                if mode != "cheb":
+                    return (fused(),)
+                return p.cheb(dinv, b, x, None if first else d_prev.clone(), c1, EPI_C2)
+
+            def plain():
+                out = epilogue_plain(mode, interior_plain(x), row_mask=mask, **kw)
+                hb = p._exchange(x)()
+                if mode == "cheb":
+                    return hmod.halo_spmv_plain(*hargs, hb, out[0], "cheb", x=x, b=b,
+                                                dinv=dinv, d=out[1], c1=c1, c2=EPI_C2)
+                return (hmod.halo_spmv_plain(*hargs, hb, out, mode, **kw),)
+
+            def tup(r):
+                return r if isinstance(r, tuple) else (r,)
+
+            # the whole operation against the composition and the plain versions
+            got, composed, plain_v = once(), tup(epilogue_plain(mode, p(x), **kw)), plain()
+            bitwise = all(torch.equal(g, c) for g, c in zip(got, composed))
+            err, rel = rel_err(got[0], plain_v[0])
+            lib_y = library() if library is not None else None
+            lib_err = rel_err(lib_y, plain_v[0]) if lib_y is not None else None
+            # each launch alone against its plain-mode launch and the torch ops
+            m = masked_rows(mask, n)
+            m = m[:, None] if d > 1 else m
+            y_int = tup(interior(mask) if mode != "cheb" else sparse.cheb_step(
+                L, dinv, b, x, None if first else d_prev.clone(), c1, EPI_C2, True, mask))
+            ref_int = tup(epilogue_plain(mode, sparse.spmv(L, x), row_mask=mask, **kw))
+            bit_int = torch.equal(y_int[0], ref_int[0]) and (
+                mode != "cheb" or torch.equal(torch.where(m, ref_int[1], y_int[1]),
+                                              ref_int[1]))
+            hb = p._exchange(x)()
+            y0 = y_int[0]
+            d0 = ref_int[1] if mode == "cheb" else None   # y_int's, where it wrote
+            y_h, d_h = halo_mode(hb, y0.clone(), None if d0 is None else d0.clone())
+            ref_h = hmod.halo_spmv(*hargs, hb, y0.clone(), H.tpr)
+            want = ref_h.clone()
+            at = {k: (t.index_select(0, o) if isinstance(t, torch.Tensor) else t)
+                  for k, t in kw.items()}
+            if mode == "cheb":
+                if first:
+                    at["d"] = None
+                want_x, want_d = epilogue_plain("cheb", ref_h[o], **at)
+                want[o] = want_x
+                bit_h = (torch.equal(y_h, want) and torch.equal(d_h[o], want_d)
+                         and torch.equal(torch.where(m, d0, d_h), d0))
+            else:
+                want[o] = epilogue_plain(mode, ref_h[o], **at)
+                bit_h = torch.equal(y_h, want)
+            torch.cuda.synchronize()
+            ok = (bitwise and bit_int and bit_h and rel <= tol
+                  and bool(torch.isfinite(got[0]).all())
+                  and (lib_err is None or lib_err[1] <= tol))
+            y_work, y_add = y0.clone(), y0.clone()
+            d_halo = None if d0 is None else d0.clone()
+            fns = {"fused": fused, "composed": lambda: epilogue_plain(mode, p(x), **kw),
+                   "apply": lambda: p(x), "interior": lambda: interior(mask),
+                   "unmasked": lambda: interior(None),
+                   "halo": lambda: halo_mode(hb, y_work, d_halo),
+                   "halo_add": lambda: hmod.halo_spmv(*hargs, hb, y_add, H.tpr),
+                   "plain": plain}
+            order = ["fused", "composed", "apply", "interior", "unmasked", "halo",
+                     "halo_add", "plain", "halo_add", "halo", "unmasked", "interior",
+                     "apply", "composed", "fused"]
+            if library is not None:
+                fns["library"] = library
+                order[8:8] = ["library"]
+                order.append("library")
+            ev, ms = time_in_turns(fns, order)
+            interior_bytes = (sliced_diag_bytes(L.slice_ptr.cpu().numpy(),
+                                                L.wide_ptr.cpu().numpy(), item) if diag
+                              else sliced_bytes(L.slice_ptr.cpu().numpy(), item))
+            halo_bytes = H.nnz * (4 + item) + hrows * 4
+            nnz_all = whole.nnz
+            bound = spmv_bound(nnz_all, n, L.ncols, d, item,
+                               interior_bytes + halo_bytes + mask.numel() * 4 + extra)
+            neutral = spmv_bound(nnz_all, n, L.ncols, d, item,
+                                 nnz_all * (4 + item) + extra)
+            bound_int = spmv_bound(L.nnz, n, L.ncols, d, item,
+                                   interior_bytes + mask.numel() * 4 + extra)
+            # the halo part: its entries, out_row, y read and written at its
+            # rows, the real halo positions once, the epilogue's vectors there
+            bound_h = spmv_bound(H.nnz, hrows, p.halo_real, d, item,
+                                 H.nnz * (4 + item) + hrows * (4 + d * item) + extra_rows)
+            lib_ms = ms.get("library")
+            dt = "f32" if item == 4 else "f64"
+            launches_us = (ms["interior"] + ms["halo"]) * 1e3
+            log(f"phase kernels: halo epilogue {label} {op} d={d} {dt} (interior "
+                f"{type(L).__name__} {iname}, halo part {hrows} rows {H.tpr} threads per "
+                f"row) device us: fused {ms['fused'] * 1e3:.2f} (its two launches "
+                f"{launches_us:.2f}: interior {ms['interior'] * 1e3:.2f}, halo_spmv "
+                f"{mode} {ms['halo'] * 1e3:.2f}), composed (partitioned apply + torch "
+                f"ops) {ms['composed'] * 1e3:.2f}, bare apply {ms['apply'] * 1e3:.2f}, "
+                f"interior unmasked {ms['unmasked'] * 1e3:.2f}, halo_spmv plain mode "
+                f"{ms['halo_add'] * 1e3:.2f}, "
+                + (f"library (cuSPARSE addmv/addmm, whole operator) {lib_ms * 1e3:.2f}, "
+                   if lib_ms is not None else "library none, ")
+                + f"plain version {ms['plain'] * 1e3:.1f} (events per call: fused "
+                f"{ev['fused'] * 1e3:.2f}, composed {ev['composed'] * 1e3:.2f}); bound "
+                f"{bound[0] * 1e3:.2f} us ({bound[1]}; format-neutral "
+                f"{neutral[0] * 1e3:.2f}), share fused {bound[0] / ms['fused']:.3f} "
+                f"composed {bound[0] / ms['composed']:.3f}; interior bound "
+                f"{bound_int[0] * 1e3:.2f} us share {bound_int[0] / ms['interior']:.3f}; "
+                f"halo part bound {bound_h[0] * 1e3:.3f} us share "
+                f"{bound_h[0] / ms['halo']:.3f}; max_abs_err {err:.3e} rel {rel:.3e} vs "
+                f"plain (tol {tol})"
+                + (f", library {lib_err[0]:.3e} rel {lib_err[1]:.3e}"
+                   if lib_err is not None else "")
+                + f"; bitwise: operation {bitwise}, interior {bit_int}, halo {bit_h} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"halo epilogue {label} {op} d={d} {dt} disagrees")
+            keep("halo_spmv", err)
+            keep(iname, err)
+            if (d, item) == (1, 4):
+                kinfo["halo_spmv"]["epilogues"][f"{label} {op}"] = {
+                    "ms": ms["halo"], "plain_mode_ms": ms["halo_add"],
+                    "bound_ms": bound_h[0], "bound_by": bound_h[1], "library_ms": None,
+                    "max_abs_err": err, "bitwise": bit_h,
+                    "operation": {
+                        "ms": ms["fused"], "launches_ms": launches_us / 1e3,
+                        "composed_ms": ms["composed"], "apply_ms": ms["apply"],
+                        "plain_ms": ms["plain"], "bound_ms": bound[0],
+                        "bound_by": bound[1], "neutral_bound_ms": neutral[0],
+                        "library_ms": lib_ms, "bitwise": bitwise}}
+                kinfo[iname]["epilogues"][f"halo {label} {op} masked"] = {
+                    "ms": ms["interior"], "unmasked_ms": ms["unmasked"],
+                    "bound_ms": bound_int[0], "bound_by": bound_int[1],
+                    "library_ms": None, "bitwise": bit_int}
+
+        halo_epi = [("A0", pA0, stacked_csr(chain0, nl0, P0, nl0, P0), op)
+                    for op in EPI_OPS]
+        halo_epi.append(("U0", pU0, stacked_csr(U0_csr, nl0, P0, nl1, P1), "add"))
+        for label, pop, whole, op in halo_epi:
+            for dtype, d in ((torch.float32, 1), (torch.float64, 3)):
+                halo_epilogue_case(label, pop, whole, op, dtype, d)
         # the loop's last bindings hold ~110 MiB of card memory (A0's f64
         # operands, U0^T's parts) that phase poisson's peak must not count
-        del pA0, pU0T, halo_cases, L, pop
+        del pA0, pU0T, pU0, halo_cases, halo_epi, L, pop, whole
         y0 = y_acc = hargs = dargs = None
 
         A = stacked_shuffle(_build_dist_op(chain0, 4, nl0, nl0, ctx.dtype), P0, P0, dev)
@@ -1782,6 +2031,7 @@ def main():
         xh, hcycles, hres_dev = hctx.solve(rhs, **kw)
         cold_s = time.perf_counter() - t0
         launches = counts.read()
+        hmodes = counts.by_mode()
         ht = dict(hctx.timing)
         hrun0 = hctx.dispatched
         t0 = time.perf_counter()
@@ -1798,6 +2048,48 @@ def main():
                                        int(hctx.timing.get("host_reads", 0)),
                                        int(hctx.timing.get("graph_launches", 0))))
         hloop_dev_ms = [a.elapsed_time(b) for a, b in ev]
+        (hloop,) = hctx._fused.values()
+        hgraph = hloop.graph
+        htrace = hloop.state.trace[:hcycles].tolist()   # the last fused solve's
+
+        # The same solve with the plain compositions patched in (each
+        # operation the partitioned apply followed by its torch ops, the
+        # epilogues' bitwise reference), captured on a cold solve into a
+        # graph pool of its own; then warm solves of the two WHILE graphs in
+        # turns (E P P E ...), CUDA events around each launch.
+        epi_loops, epi_pool = hctx._fused, hctx._graph_pool
+        hctx._fused, hctx._graph_pool = {}, None
+        with plain_compositions():
+            xh_plain, hcycles_plain, hres_plain = hctx.solve(rhs, **kw)
+        plain_loops = hctx._fused
+        (hploop,) = plain_loops.values()
+        htrace_plain = hploop.state.trace[:hcycles_plain].tolist()
+        hturns = {"epilogues": [], "plain": []}
+        hturn_x = []
+        with loop_events() as ev:
+            for order in (("epilogues", "plain"), ("plain", "epilogues")) * 3:
+                for how in order:
+                    hctx._fused = epi_loops if how == "epilogues" else plain_loops
+                    xt, it_t, res_t = hctx.solve(rhs, **kw)
+                    hturn_x.append(np.array_equal(xt, xh) and (it_t, res_t)
+                                   == (hcycles, hres_dev))
+                    hturns[how].append(hctx.timing["cycles_ms"])
+        hturn_dev = {"epilogues": [], "plain": []}
+        for (a, b), how in zip(ev, [h for o in (("epilogues", "plain"),
+                                                ("plain", "epilogues")) * 3 for h in o]):
+            hturn_dev[how].append(a.elapsed_time(b))
+        hctx._fused = plain_loops
+        with torch_trace(halo_dir, name="halo_plain_fused_warm_solve") as prof:
+            hctx.solve(rhs, **kw)
+        hplain_msg = trace_summary(prof, "halo_plain_fused_warm_solve", hctx.dispatched)
+        hplain_nodes = dict(hploop.graph.step_nodes)
+        release_loops(plain_loops, dev)
+        hctx._fused, hctx._graph_pool = epi_loops, epi_pool
+        del hploop
+
+        def median(v):
+            return sorted(v)[len(v) // 2]
+
         hres = solver.residual(lhs, rhs, xh)
         rel = float(np.abs(xh - x_single).max() / np.abs(x_single).max())
         # The same without the deflated constant, which dominates max|x|:
@@ -1807,8 +2099,6 @@ def main():
         with torch_trace(halo_dir, name="halo_fused_warm_solve") as prof:
             hctx.solve(rhs, **kw)
         fused_prof_ms = hctx.timing["cycles_ms"]
-        (hloop,) = hctx._fused.values()
-        hgraph = hloop.graph
         fused_msg = trace_summary(prof, "halo_fused_warm_solve", hctx.dispatched)
         fused_halo_events = spmv_events(prof, "halo_spmv")
         with torch_trace(halo_dir, name="halo_warm_solve") as prof:
@@ -1823,6 +2113,13 @@ def main():
             "mean-free rel diff < 1e-3": rel0 < 1e-3,
             "fused x == traced x (bitwise)": np.array_equal(xh, xh_tr),
             "fused cycles, res == traced": (hcycles, hres_dev) == (hcycles_tr, hres_tr),
+            "5 cycles": hcycles == 5,
+            "plain compositions: x, trace, cycles, res (bitwise)":
+                np.array_equal(xh_plain, xh) and htrace_plain == htrace
+                and (hcycles_plain, hres_plain) == (hcycles, hres_dev) and all(hturn_x),
+            "every halo_spmv epilogue launched (residual, add, cheb)":
+                all(hmodes["halo_spmv"][m] > 0 for m in ("residual", "add", "cheb")),
+            "captured halo cycle <= 230 kernels": hgraph.step_nodes.get("kernel", 0) <= 230,
             "cold: 2 host reads, 1 graph launch":
                 (int(ht["host_reads"]), int(ht["graph_launches"])) == (2, 1),
             "warm: 1 host read, 1 graph launch":
@@ -1872,6 +2169,27 @@ def main():
             f"{fused_msg}")
         log(f"phase halo: traced warm solve under the profiler {traced_ms:.2f} ms: "
             f"{trace_msg}")
+        log(f"phase halo: epilogues against the plain compositions (each operation "
+            f"the partitioned apply followed by its torch ops), same run: captured "
+            f"cycle kernels {hgraph.step_nodes.get('kernel', 0)} against "
+            f"{hplain_nodes.get('kernel', 0)}, WHILE graph nodes "
+            f"{sum(hgraph.step_nodes.values()) + 4} against "
+            f"{sum(hplain_nodes.values()) + 4}; warm fused cycles ms in turns epilogues "
+            + ", ".join(f"{v:.3f}" for v in hturns["epilogues"])
+            + f" (median {median(hturns['epilogues']):.3f}), plain "
+            + ", ".join(f"{v:.3f}" for v in hturns["plain"])
+            + f" (median {median(hturns['plain']):.3f}); WHILE graph device ms "
+            f"epilogues " + ", ".join(f"{v:.4f}" for v in hturn_dev["epilogues"])
+            + f" (median {median(hturn_dev['epilogues']):.4f}, "
+            f"{median(hturn_dev['epilogues']) / max(hcycles, 1):.4f} a cycle), plain "
+            + ", ".join(f"{v:.4f}" for v in hturn_dev["plain"])
+            + f" (median {median(hturn_dev['plain']):.4f}, "
+            f"{median(hturn_dev['plain']) / max(hcycles, 1):.4f} a cycle); cycles "
+            f"{hcycles} / {hcycles_plain}, x, trace, residual bitwise equal "
+            f"{np.array_equal(xh_plain, xh) and htrace_plain == htrace}")
+        log(f"phase halo: plain-composition fused warm solve under the profiler: "
+            f"{hplain_msg}")
+        log(f"phase halo: launches by epilogue {hmodes} (fused cold solve)")
         log(f"phase halo: launches {launches} (fused cold solve; sliced_diag_spmv "
             f"expected 10 per cycle run, {hrun0} run) checks "
             f"{[k for k, v in checks.items() if not v] or 'all passed'} "
@@ -2283,10 +2601,14 @@ def main():
     # (diag_spmv on A0's DiagEll, format-neutral bound; sliced_diag_spmv,
     # the layout's own bound) and the halo path's U0^T halo part d=1 f32
     # (halo_spmv; cuSPARSE on its compact CSR); launches summed over the
-    # solve phases, for sliced_spmv and sliced_diag_spmv also per epilogue,
-    # with each epilogue's times from phase kernels (A0, A1, U0 at d=1 f32;
-    # the residual's and the add's library time is cuSPARSE's addmv; no
-    # single PyTorch call computes a Chebyshev step, so it has none).
+    # solve phases, for sliced_spmv, sliced_diag_spmv and halo_spmv also per
+    # epilogue, with each epilogue's times from phase kernels (A0, A1, U0 at
+    # d=1 f32; the residual's and the add's library time is cuSPARSE's
+    # addmv; no single PyTorch call computes a Chebyshev step, so it has
+    # none; halo_spmv's modes on the partitioned A0 and U0, with the whole
+    # operation's times under "operation", its library time cuSPARSE's
+    # addmv on the whole partitioned operator; the masked interior launches
+    # under their interior kernel).
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"gravo_mg_tpu_torch/csrc/{src}", "replaces": replaces,

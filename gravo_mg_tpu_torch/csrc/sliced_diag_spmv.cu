@@ -48,8 +48,11 @@
 // Summation follows slot order (CSR column order).  Up to kCols
 // right-hand-side columns per thread (one where d = 1), wider right-hand
 // sides over gridDim.y.  The row's thread applies the launch's epilogue
-// (spmv_common.cuh: plain, residual, add or the Chebyshev step) to its sum
-// before it stores.
+// (spmv_common.cuh: plain, residual or the Chebyshev step) to its sum
+// before it stores; in a masked launch (the halo path's stacked level-0
+// interior) only where the row's mask bit is clear, storing the raw sum on
+// the boundary rows for the halo_spmv launch that follows
+// (csrc/sliced_spmv.cu).
 
 #include "spmv_common.cuh"
 
@@ -95,7 +98,7 @@ __device__ __forceinline__ void sum_slots(int w, ValAt val_at, ColAt col_at,
   }
 }
 
-template <Mode M, typename T, int NC>
+template <Mode M, typename T, int NC, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 sliced_diag_spmv_kernel(const int64_t* __restrict__ slice_ptr,
                         const int32_t* __restrict__ base,
@@ -103,6 +106,7 @@ sliced_diag_spmv_kernel(const int64_t* __restrict__ slice_ptr,
                         const T* __restrict__ val,
                         const int64_t* __restrict__ wide_ptr,
                         const int32_t* __restrict__ wide_col,
+                        const uint32_t* __restrict__ mask,
                         const T* __restrict__ x, T* __restrict__ y,
                         const Epilogue<T> ep, int nrows, int d) {
   const int s = static_cast<int>(blockIdx.x) * kWarps + threadIdx.x / kSlice;
@@ -134,26 +138,36 @@ sliced_diag_spmv_kernel(const int64_t* __restrict__ slice_ptr,
         w, val_at, [&](int k) { return __ldcs(wc + k * kSlice); }, x, d, j0, nj,
         acc);
   }
-  if (row < nrows) store_row<M, T, NC>(y, ep, row, d, j0, nj, acc);
+  if (row < nrows)
+    store_interior_row<M, T, NC, kMasked>(y, ep, mask, row, d, j0, nj, acc);
 }
 
+// Masked where a mask is given (never in plain mode).
 template <Mode M, typename T, int NC>
 int launch_nc(const int64_t* p, const int32_t* b, const int8_t* dl, const T* v,
-              const int64_t* wp, const int32_t* wc, const T* x, T* y,
-              const Epilogue<T>& ep, int nrows, int d, cudaStream_t st) {
+              const int64_t* wp, const int32_t* wc, const uint32_t* m,
+              const T* x, T* y, const Epilogue<T>& ep, int nrows, int d,
+              cudaStream_t st) {
   const int slices = (nrows + kSlice - 1) / kSlice;
   const dim3 grid(static_cast<unsigned>((slices + kWarps - 1) / kWarps),
                   static_cast<unsigned>((d + NC - 1) / NC));
-  sliced_diag_spmv_kernel<M, T, NC><<<grid, kThreads, 0, st>>>(
-      p, b, dl, v, wp, wc, x, y, ep, nrows, d);
+  if constexpr (M != Mode::kPlain) {
+    if (m != nullptr) {
+      sliced_diag_spmv_kernel<M, T, NC, true><<<grid, kThreads, 0, st>>>(
+          p, b, dl, v, wp, wc, m, x, y, ep, nrows, d);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  sliced_diag_spmv_kernel<M, T, NC, false><<<grid, kThreads, 0, st>>>(
+      p, b, dl, v, wp, wc, nullptr, x, y, ep, nrows, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <Mode M, typename T>
 int launch(const void* slice_ptr, const void* base, const void* delta,
            const void* val, const void* wide_ptr, const void* wide_col,
-           const void* x, void* y, const Epilogue<T>& ep, int64_t nrows,
-           int64_t d, void* stream) {
+           const void* mask, const void* x, void* y, const Epilogue<T>& ep,
+           int64_t nrows, int64_t d, void* stream) {
   if (nrows <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
   const auto* p = static_cast<const int64_t*>(slice_ptr);
   const auto* b = static_cast<const int32_t*>(base);
@@ -161,14 +175,15 @@ int launch(const void* slice_ptr, const void* base, const void* delta,
   const auto* v = static_cast<const T*>(val);
   const auto* wp = static_cast<const int64_t*>(wide_ptr);
   const auto* wc = static_cast<const int32_t*>(wide_col);
+  const auto* m = static_cast<const uint32_t*>(mask);
   const auto* xx = static_cast<const T*>(x);
   auto* yy = static_cast<T*>(y);
   auto st = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(nrows);
   const int dd = static_cast<int>(d);
   if (d == 1)
-    return launch_nc<M, T, 1>(p, b, dl, v, wp, wc, xx, yy, ep, n, dd, st);
-  return launch_nc<M, T, kCols>(p, b, dl, v, wp, wc, xx, yy, ep, n, dd, st);
+    return launch_nc<M, T, 1>(p, b, dl, v, wp, wc, m, xx, yy, ep, n, dd, st);
+  return launch_nc<M, T, kCols>(p, b, dl, v, wp, wc, m, xx, yy, ep, n, dd, st);
 }
 
 }  // namespace
@@ -176,7 +191,7 @@ int launch(const void* slice_ptr, const void* base, const void* delta,
 
 // One entry per (epilogue, dtype).  The layout's arguments come first,
 // then x and the output (x_out for the Chebyshev step), then the
-// epilogue's vectors.
+// epilogue's vectors and the row mask (null: unmasked).
 
 #define GRAVOMG_LAYOUT_ARGS                                                   \
   const void *slice_ptr, const void *base, const void *delta, const void *val, \
@@ -188,52 +203,43 @@ extern "C" {
 int gravomg_sliced_diag_spmv_f32(GRAVOMG_LAYOUT_ARGS, const void* x, void* y,
                                  int64_t nrows, int64_t d, void* stream) {
   return gravomg::launch<gravomg::Mode::kPlain, float>(
-      GRAVOMG_LAYOUT, x, y, gravomg::vector_epilogue<float>(nullptr), nrows, d,
-      stream);
+      GRAVOMG_LAYOUT, nullptr, x, y, gravomg::vector_epilogue<float>(nullptr),
+      nrows, d, stream);
 }
 
 int gravomg_sliced_diag_spmv_f64(GRAVOMG_LAYOUT_ARGS, const void* x, void* y,
                                  int64_t nrows, int64_t d, void* stream) {
   return gravomg::launch<gravomg::Mode::kPlain, double>(
-      GRAVOMG_LAYOUT, x, y, gravomg::vector_epilogue<double>(nullptr), nrows, d,
-      stream);
+      GRAVOMG_LAYOUT, nullptr, x, y, gravomg::vector_epilogue<double>(nullptr),
+      nrows, d, stream);
 }
 
 int gravomg_sliced_diag_spmv_residual_f32(GRAVOMG_LAYOUT_ARGS, const void* x,
-                                          void* y, const void* b, int64_t nrows,
+                                          void* y, const void* b,
+                                          const void* mask, int64_t nrows,
                                           int64_t d, void* stream) {
   return gravomg::launch<gravomg::Mode::kResidual, float>(
-      GRAVOMG_LAYOUT, x, y, gravomg::vector_epilogue<float>(b), nrows, d, stream);
+      GRAVOMG_LAYOUT, mask, x, y, gravomg::vector_epilogue<float>(b), nrows, d,
+      stream);
 }
 
 int gravomg_sliced_diag_spmv_residual_f64(GRAVOMG_LAYOUT_ARGS, const void* x,
-                                          void* y, const void* b, int64_t nrows,
+                                          void* y, const void* b,
+                                          const void* mask, int64_t nrows,
                                           int64_t d, void* stream) {
   return gravomg::launch<gravomg::Mode::kResidual, double>(
-      GRAVOMG_LAYOUT, x, y, gravomg::vector_epilogue<double>(b), nrows, d, stream);
-}
-
-int gravomg_sliced_diag_spmv_add_f32(GRAVOMG_LAYOUT_ARGS, const void* x, void* y,
-                                     const void* z, int64_t nrows, int64_t d,
-                                     void* stream) {
-  return gravomg::launch<gravomg::Mode::kAdd, float>(
-      GRAVOMG_LAYOUT, x, y, gravomg::vector_epilogue<float>(z), nrows, d, stream);
-}
-
-int gravomg_sliced_diag_spmv_add_f64(GRAVOMG_LAYOUT_ARGS, const void* x, void* y,
-                                     const void* z, int64_t nrows, int64_t d,
-                                     void* stream) {
-  return gravomg::launch<gravomg::Mode::kAdd, double>(
-      GRAVOMG_LAYOUT, x, y, gravomg::vector_epilogue<double>(z), nrows, d, stream);
+      GRAVOMG_LAYOUT, mask, x, y, gravomg::vector_epilogue<double>(b), nrows, d,
+      stream);
 }
 
 int gravomg_sliced_diag_spmv_cheb_f32(GRAVOMG_LAYOUT_ARGS, const void* x,
                                       void* x_out, const void* b,
                                       const void* dinv, void* dstep,
-                                      int64_t nrows, int64_t d, int64_t first,
-                                      double c1, double c2, void* stream) {
+                                      const void* mask, int64_t nrows,
+                                      int64_t d, int64_t first, double c1,
+                                      double c2, void* stream) {
   return gravomg::launch<gravomg::Mode::kCheb, float>(
-      GRAVOMG_LAYOUT, x, x_out,
+      GRAVOMG_LAYOUT, mask, x, x_out,
       gravomg::cheb_epilogue<float>(b, dinv, x, dstep, first, c1, c2), nrows, d,
       stream);
 }
@@ -241,10 +247,11 @@ int gravomg_sliced_diag_spmv_cheb_f32(GRAVOMG_LAYOUT_ARGS, const void* x,
 int gravomg_sliced_diag_spmv_cheb_f64(GRAVOMG_LAYOUT_ARGS, const void* x,
                                       void* x_out, const void* b,
                                       const void* dinv, void* dstep,
-                                      int64_t nrows, int64_t d, int64_t first,
-                                      double c1, double c2, void* stream) {
+                                      const void* mask, int64_t nrows,
+                                      int64_t d, int64_t first, double c1,
+                                      double c2, void* stream) {
   return gravomg::launch<gravomg::Mode::kCheb, double>(
-      GRAVOMG_LAYOUT, x, x_out,
+      GRAVOMG_LAYOUT, mask, x, x_out,
       gravomg::cheb_epilogue<double>(b, dinv, x, dstep, first, c1, c2), nrows, d,
       stream);
 }

@@ -6,16 +6,25 @@
 // run one thread per output row; sliced_spmv and halo_spmv one or more
 // (their TPR).
 //
-// The epilogues of sliced_spmv and sliced_diag_spmv: what the row's owning
-// thread does with its sum s = (A x)[row, j] before it stores, so that one
-// launch computes a whole operation of the multigrid cycle (the part the
-// JAX program hands to XLA's fusion around the Pallas call):
+// The epilogues of sliced_spmv, sliced_diag_spmv and halo_spmv: what the
+// row's owning thread does with its sum s = (A x)[row, j] before it stores
+// (in halo_spmv, s = y[row, j] + the halo sum, the interior's raw sum plus
+// the halo part's, one rounded add), so that one launch computes a whole
+// operation of the multigrid cycle (the part the JAX program hands to XLA's
+// fusion around the Pallas call):
 //
 //   kPlain     y = s
 //   kResidual  y = b - s                     (the residual b - A x)
 //   kAdd       y = b + s                     (x + U e; b holds x)
 //   kCheb      r = b - s;  d = c1 d + (c2 dinv) r  (first step: d = (c2 dinv) r);
 //              y = x + d, and d stored where it is kept
+//
+// A masked launch (the interior part of a row-partitioned operator,
+// parallel/halo.py) takes a row mask, one uint32 per 32-row slice, bit r of
+// word s set when row 32 s + r also has a halo part: such a row stores its
+// raw sum s (and leaves d unread and unwritten), and the halo_spmv launch
+// after it adds the halo sum and applies the epilogue there.  Every other
+// row applies the epilogue as an unmasked launch does.
 //
 // Each operation is rounded as the port's torch expression rounds it
 // (solver/smoothers.py, solver/multigrid.py): one IEEE-rounded add,
@@ -47,7 +56,8 @@ template <typename T>
 struct Epilogue {
   const T* b;     // kResidual, kCheb: the right-hand side; kAdd: the addend
   const T* dinv;  // kCheb: the inverse diagonal
-  const T* x;     // kCheb: the iterate, the SpMV's own input
+  const T* x;     // kCheb: the iterate (the SpMV's own input; halo_spmv's
+                  // input is the halo buffer)
   T* d;           // kCheb: the step, read unless `first`, written unless null
   T c1, c2;       // kCheb
   int first;      // kCheb: no c1 d term (and d is not read)
@@ -89,6 +99,22 @@ __device__ __forceinline__ void store_row(T* __restrict__ y,
 #pragma unroll
   for (int j = 0; j < NC; ++j)
     if (j < nj) y[i0 + j] = epilogue<M>(ep, i0 + j, row, acc[j]);
+}
+
+// store_row for the interior launch: with kMasked, a row whose bit is set
+// in mask (one word per 32-row slice) stores its raw sum, the rest go
+// through the epilogue.  Without kMasked this is store_row<M>.
+template <Mode M, typename T, int NC, bool kMasked>
+__device__ __forceinline__ void store_interior_row(
+    T* __restrict__ y, const Epilogue<T>& ep, const uint32_t* __restrict__ mask,
+    int64_t row, int64_t d, int64_t j0, int64_t nj, const T (&acc)[NC]) {
+  if constexpr (kMasked) {
+    if ((__ldg(mask + (row >> 5)) >> (row & 31)) & 1u) {
+      store_row<Mode::kPlain, T, NC>(y, ep, row, d, j0, nj, acc);
+      return;
+    }
+  }
+  store_row<M, T, NC>(y, ep, row, d, j0, nj, acc);
 }
 
 // The operands of the kResidual / kAdd epilogues (b or the addend) and of

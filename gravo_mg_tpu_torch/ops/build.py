@@ -33,18 +33,22 @@ _DIAG_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
-# sliced_spmv: (slice_ptr, col, val, x, y[, epilogue vectors], nrows, d, tpr
-# [, first, c1, c2], stream); sliced_diag_spmv: (slice_ptr, base, delta,
-# val, wide_ptr, wide_col, x, y[, epilogue vectors], nrows, d[, first, c1,
-# c2], stream).  The residual and add epilogues take one vector (b or z),
-# the Chebyshev step three (b, dinv, d).
+# sliced_spmv: (slice_ptr, col, val, x, y[, epilogue vectors, row mask],
+# nrows, d, tpr[, first, c1, c2], stream); sliced_diag_spmv: (slice_ptr,
+# base, delta, val, wide_ptr, wide_col, x, y[, epilogue vectors, row mask],
+# nrows, d[, first, c1, c2], stream); halo_spmv: (slice_ptr, col, val,
+# out_row, halo, y[, epilogue vectors], nrows, d, tpr[, first, c1, c2],
+# stream).  The residual and add epilogues take one vector (b or z), the
+# Chebyshev step three (b, dinv, d), on halo_spmv four (x, b, dinv, d).
 _SLICED_ARGS = [_P] * 5 + [_I] * 3 + [_P]
-_SLICED_VEC_ARGS = [_P] * 6 + [_I] * 3 + [_P]
-_SLICED_CHEB_ARGS = [_P] * 8 + [_I] * 4 + [_D] * 2 + [_P]
+_SLICED_VEC_ARGS = [_P] * 7 + [_I] * 3 + [_P]
+_SLICED_CHEB_ARGS = [_P] * 9 + [_I] * 4 + [_D] * 2 + [_P]
 _SLICED_DIAG_ARGS = [_P] * 8 + [_I] * 2 + [_P]
-_SLICED_DIAG_VEC_ARGS = [_P] * 9 + [_I] * 2 + [_P]
-_SLICED_DIAG_CHEB_ARGS = [_P] * 11 + [_I] * 3 + [_D] * 2 + [_P]
+_SLICED_DIAG_VEC_ARGS = [_P] * 10 + [_I] * 2 + [_P]
+_SLICED_DIAG_CHEB_ARGS = [_P] * 12 + [_I] * 3 + [_D] * 2 + [_P]
 _HALO_ARGS = [_P] * 6 + [_I] * 3 + [_P]
+_HALO_VEC_ARGS = [_P] * 7 + [_I] * 3 + [_P]
+_HALO_CHEB_ARGS = [_P] * 10 + [_I] * 4 + [_D] * 2 + [_P]
 _SIGNATURES = {
     "gravomg_graph_node_types": [_P, ctypes.POINTER(ctypes.c_int64)],
     "gravomg_graph_loop_create": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
@@ -53,12 +57,16 @@ _SIGNATURES = {
     "gravomg_graph_loop_destroy": [_P, _P],
     "gravomg_halo_spmv_f32": _HALO_ARGS,
     "gravomg_halo_spmv_f64": _HALO_ARGS,
+    "gravomg_halo_spmv_residual_f32": _HALO_VEC_ARGS,
+    "gravomg_halo_spmv_residual_f64": _HALO_VEC_ARGS,
+    "gravomg_halo_spmv_add_f32": _HALO_VEC_ARGS,
+    "gravomg_halo_spmv_add_f64": _HALO_VEC_ARGS,
+    "gravomg_halo_spmv_cheb_f32": _HALO_CHEB_ARGS,
+    "gravomg_halo_spmv_cheb_f64": _HALO_CHEB_ARGS,
     "gravomg_sliced_diag_spmv_f32": _SLICED_DIAG_ARGS,
     "gravomg_sliced_diag_spmv_f64": _SLICED_DIAG_ARGS,
     "gravomg_sliced_diag_spmv_residual_f32": _SLICED_DIAG_VEC_ARGS,
     "gravomg_sliced_diag_spmv_residual_f64": _SLICED_DIAG_VEC_ARGS,
-    "gravomg_sliced_diag_spmv_add_f32": _SLICED_DIAG_VEC_ARGS,
-    "gravomg_sliced_diag_spmv_add_f64": _SLICED_DIAG_VEC_ARGS,
     "gravomg_sliced_diag_spmv_cheb_f32": _SLICED_DIAG_CHEB_ARGS,
     "gravomg_sliced_diag_spmv_cheb_f64": _SLICED_DIAG_CHEB_ARGS,
     "gravomg_shuffle_spmv_f32": _SPMV_ARGS,

@@ -12,11 +12,15 @@ for a GPU instead of the TPU's (tile, block diagonal) slots (see
 ``sparse.SlicedDiag``): each warp streams its slice's values and deltas
 from device memory.
 
-:func:`sliced_diag_spmv_residual`, :func:`sliced_diag_spmv_add` and
-:func:`sliced_diag_spmv_cheb` launch the same kernel with an epilogue
-(``ops/epilogue.py``): ``b - A x``, ``z + A x`` and a whole Chebyshev or
-Jacobi step, each in one pass and bitwise equal to the plain-mode kernel
-followed by the torch ops of :func:`epilogue.epilogue_plain`.
+:func:`sliced_diag_spmv_residual` and :func:`sliced_diag_spmv_cheb`
+launch the same kernel with an epilogue (``ops/epilogue.py``): ``b - A x``
+and a whole Chebyshev or Jacobi step, each in one pass and bitwise equal
+to the plain-mode kernel followed by the torch ops of
+:func:`epilogue.epilogue_plain` (no operator in this layout is a transfer,
+so no caller needs the add).  Given a ``row_mask`` (the halo path's
+stacked level-0 interior) they apply the epilogue only on the rows whose
+bit is clear and store the raw sum on the others, as
+``epilogue_plain(..., row_mask=)`` does.
 
 Every wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
@@ -33,7 +37,7 @@ from .epilogue import MODES, check_epilogue, epilogue_plain
 from .sliced_spmv import SLICE, entry_rows, sliced_spmv_plain
 
 launches = 0
-launches_by_mode = dict.fromkeys(MODES, 0)
+launches_by_mode = dict.fromkeys((m for m in MODES if m != "add"), 0)
 
 _FLOATS = (torch.float32, torch.float64)
 _INT32_ROWS = 2**31 - SLICE
@@ -152,32 +156,18 @@ def sliced_diag_spmv_residual(slice_ptr: torch.Tensor, base: torch.Tensor,
                               delta: torch.Tensor, val: torch.Tensor,
                               wide_ptr: torch.Tensor, wide_col: torch.Tensor,
                               x: torch.Tensor, b: torch.Tensor,
-                              nrows: int) -> torch.Tensor:
-    """``b - A @ x`` in one launch; b has the shape of A @ x."""
+                              nrows: int, row_mask=None) -> torch.Tensor:
+    """``b - A @ x`` in one launch; b has the shape of A @ x.  ``row_mask``
+    (int32, one word per slice): the raw sum on the rows whose bit is set."""
     layout = (slice_ptr, base, delta, val, wide_ptr, wide_col)
     if not _on_card(x):
         return epilogue_plain("residual", sliced_diag_spmv_plain(*layout, x, nrows),
-                              b=b)
+                              b=b, row_mask=row_mask)
     d = check_operands(*layout, x, nrows)
-    check_epilogue("sliced_diag_spmv_residual", "residual", x, nrows, b=b)
+    check_epilogue("sliced_diag_spmv_residual", "residual", x, nrows, b=b,
+                   row_mask=row_mask)
     y = torch.empty_like(b)
-    _launch("residual", (*layout, x, y, b), nrows, d)
-    return y
-
-
-def sliced_diag_spmv_add(slice_ptr: torch.Tensor, base: torch.Tensor,
-                         delta: torch.Tensor, val: torch.Tensor,
-                         wide_ptr: torch.Tensor, wide_col: torch.Tensor,
-                         x: torch.Tensor, z: torch.Tensor,
-                         nrows: int) -> torch.Tensor:
-    """``z + A @ x`` in one launch; z has the shape of A @ x."""
-    layout = (slice_ptr, base, delta, val, wide_ptr, wide_col)
-    if not _on_card(x):
-        return epilogue_plain("add", sliced_diag_spmv_plain(*layout, x, nrows), z=z)
-    d = check_operands(*layout, x, nrows)
-    check_epilogue("sliced_diag_spmv_add", "add", x, nrows, z=z)
-    y = torch.empty_like(z)
-    _launch("add", (*layout, x, y, z), nrows, d)
+    _launch("residual", (*layout, x, y, b, row_mask), nrows, d)
     return y
 
 
@@ -185,23 +175,26 @@ def sliced_diag_spmv_cheb(slice_ptr: torch.Tensor, base: torch.Tensor,
                           delta: torch.Tensor, val: torch.Tensor,
                           wide_ptr: torch.Tensor, wide_col: torch.Tensor,
                           x: torch.Tensor, b: torch.Tensor, dinv: torch.Tensor,
-                          d, c1, c2: float, nrows: int, keep_d: bool = True):
+                          d, c1, c2: float, nrows: int, keep_d: bool = True,
+                          row_mask=None):
     """One smoother step in one launch, as :func:`sliced_spmv.sliced_spmv_cheb`:
     ``r = b - A x``, ``d = c1 d + (c2 dinv) r`` (no ``c1 d`` term and no d
     taken where ``c1`` is None), ``x_out = x + d``.  Returns ``(x_out,
     d)``: d written in place where given, a new tensor on a first step,
-    None where ``keep_d`` is false."""
+    None where ``keep_d`` is false.  ``row_mask`` as in
+    :func:`sliced_diag_spmv_residual`; d is neither read nor written on
+    the rows whose bit is set."""
     layout = (slice_ptr, base, delta, val, wide_ptr, wide_col)
     if not _on_card(x):
         return epilogue_plain(
             "cheb", sliced_diag_spmv_plain(*layout, x, nrows), b=b, dinv=dinv, x=x,
-            d=d, c1=c1, c2=c2, keep_d=keep_d)
+            d=d, c1=c1, c2=c2, keep_d=keep_d, row_mask=row_mask)
     nd = check_operands(*layout, x, nrows)
     check_epilogue("sliced_diag_spmv_cheb", "cheb", x, nrows, b=b, dinv=dinv, d=d,
-                   c1=c1)
+                   c1=c1, row_mask=row_mask)
     if d is None and keep_d:
         d = torch.empty_like(b)
     x_out = torch.empty_like(x)
-    _launch("cheb", (*layout, x, x_out, b, dinv, d), nrows, nd,
+    _launch("cheb", (*layout, x, x_out, b, dinv, d, row_mask), nrows, nd,
             (int(c1 is None), 0.0 if c1 is None else float(c1), float(c2)))
     return x_out, (d if keep_d else None)

@@ -13,7 +13,10 @@ TPU's per-row-group source blocks (see ``sparse.SlicedEll``).
 :func:`sliced_spmv_cheb` launch the same kernel with an epilogue
 (``ops/epilogue.py``): ``b - A x``, ``z + A x`` and a whole Chebyshev or
 Jacobi step, each in one pass and bitwise equal to the plain-mode kernel
-followed by the torch ops of :func:`epilogue.epilogue_plain`.
+followed by the torch ops of :func:`epilogue.epilogue_plain`.  Given a
+``row_mask`` (the halo path's interior launch) they apply the epilogue
+only on the rows whose bit is clear and store the raw sum on the others,
+as ``epilogue_plain(..., row_mask=)`` does.
 
 Every wrapper takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
@@ -134,52 +137,59 @@ def sliced_spmv(slice_ptr: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
 
 def sliced_spmv_residual(slice_ptr: torch.Tensor, col: torch.Tensor,
                          val: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
-                         nrows: int, tpr: int = 1) -> torch.Tensor:
-    """``b - A @ x`` in one launch; b has the shape of A @ x."""
+                         nrows: int, tpr: int = 1, row_mask=None) -> torch.Tensor:
+    """``b - A @ x`` in one launch; b has the shape of A @ x.  ``row_mask``
+    (int32, one word per slice): the raw sum on the rows whose bit is set."""
     if not _on_card(x):
         return epilogue_plain("residual", sliced_spmv_plain(slice_ptr, col, val, x,
-                                                            nrows), b=b)
+                                                            nrows), b=b,
+                              row_mask=row_mask)
     d = check_operands(slice_ptr, col, val, x, nrows, tpr)
-    check_epilogue("sliced_spmv_residual", "residual", x, nrows, b=b)
+    check_epilogue("sliced_spmv_residual", "residual", x, nrows, b=b,
+                   row_mask=row_mask)
     y = torch.empty_like(b)
-    _launch("residual", (slice_ptr, col, val, x, y, b), nrows, d, tpr)
+    _launch("residual", (slice_ptr, col, val, x, y, b, row_mask), nrows, d, tpr)
     return y
 
 
 def sliced_spmv_add(slice_ptr: torch.Tensor, col: torch.Tensor,
                     val: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
-                    nrows: int, tpr: int = 1) -> torch.Tensor:
+                    nrows: int, tpr: int = 1, row_mask=None) -> torch.Tensor:
     """``z + A @ x`` in one launch (the prolongation's ``x + U e``, with
-    ``e`` as x here); z has the shape of A @ x."""
+    ``e`` as x here); z has the shape of A @ x.  ``row_mask`` as in
+    :func:`sliced_spmv_residual`."""
     if not _on_card(x):
         return epilogue_plain("add", sliced_spmv_plain(slice_ptr, col, val, x, nrows),
-                              z=z)
+                              z=z, row_mask=row_mask)
     d = check_operands(slice_ptr, col, val, x, nrows, tpr)
-    check_epilogue("sliced_spmv_add", "add", x, nrows, z=z)
+    check_epilogue("sliced_spmv_add", "add", x, nrows, z=z, row_mask=row_mask)
     y = torch.empty_like(z)
-    _launch("add", (slice_ptr, col, val, x, y, z), nrows, d, tpr)
+    _launch("add", (slice_ptr, col, val, x, y, z, row_mask), nrows, d, tpr)
     return y
 
 
 def sliced_spmv_cheb(slice_ptr: torch.Tensor, col: torch.Tensor,
                      val: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                      dinv: torch.Tensor, d, c1, c2: float, nrows: int,
-                     tpr: int = 1, keep_d: bool = True):
+                     tpr: int = 1, keep_d: bool = True, row_mask=None):
     """One smoother step in one launch: ``r = b - A x``, ``d = c1 d +
     (c2 dinv) r`` (``d = (c2 dinv) r`` where ``c1`` is None, a first
     step, which takes no d), ``x_out = x + d``.  A is square; dinv is
     (nrows,).  Returns ``(x_out, d)``: x_out a new tensor; d written in
     place where given, a new tensor on a first step, None where
-    ``keep_d`` is false (a Jacobi step)."""
+    ``keep_d`` is false (a Jacobi step).  ``row_mask`` as in
+    :func:`sliced_spmv_residual`; d is neither read nor written on the
+    rows whose bit is set."""
     if not _on_card(x):
         return epilogue_plain(
             "cheb", sliced_spmv_plain(slice_ptr, col, val, x, nrows), b=b,
-            dinv=dinv, x=x, d=d, c1=c1, c2=c2, keep_d=keep_d)
+            dinv=dinv, x=x, d=d, c1=c1, c2=c2, keep_d=keep_d, row_mask=row_mask)
     nd = check_operands(slice_ptr, col, val, x, nrows, tpr)
-    check_epilogue("sliced_spmv_cheb", "cheb", x, nrows, b=b, dinv=dinv, d=d, c1=c1)
+    check_epilogue("sliced_spmv_cheb", "cheb", x, nrows, b=b, dinv=dinv, d=d, c1=c1,
+                   row_mask=row_mask)
     if d is None and keep_d:
         d = torch.empty_like(b)
     x_out = torch.empty_like(x)
-    _launch("cheb", (slice_ptr, col, val, x, x_out, b, dinv, d), nrows, nd, tpr,
-            (int(c1 is None), 0.0 if c1 is None else float(c1), float(c2)))
+    _launch("cheb", (slice_ptr, col, val, x, x_out, b, dinv, d, row_mask), nrows, nd,
+            tpr, (int(c1 is None), 0.0 if c1 is None else float(c1), float(c2)))
     return x_out, (d if keep_d else None)

@@ -18,7 +18,13 @@ operator, both transfers and the mass matrix are block-partitioned over
   SlicedEll), its halo parts into one compact SlicedEll over the boundary
   rows; each apply is two launches whatever the number of partitions:
   post the exchange, interior SpMV (reads only local blocks), wait, halo
-  SpMV added into the interior's output (``ops/halo_spmv.py``).
+  SpMV added into the interior's output (``ops/halo_spmv.py``).  The
+  cycle's residual, prolongation add and Chebyshev step are the same two
+  launches with the epilogue inside them (:meth:`PartitionedOp.residual`,
+  ``add``, ``cheb``), where the JAX program has XLA fuse the sum and the
+  elementwise work around its two Pallas calls: the interior launch
+  applies it on the rows without a halo part (a row mask) and the halo
+  launch on the boundary rows, after their add.
 * Exchange: for ring shift ``s`` partition ``i`` gathers
   ``x_loc[send_idx[i]]`` and sends it to ``(i + s) % D``, which scatters it
   to ``halo[recv_pos]`` (``jax.lax.ppermute`` semantics; padding, which
@@ -56,7 +62,13 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
-from ..ops.halo_spmv import halo_spmv
+from ..ops.epilogue import row_mask_from_rows
+from ..ops.halo_spmv import (
+    halo_spmv,
+    halo_spmv_add,
+    halo_spmv_cheb,
+    halo_spmv_residual,
+)
 from ..solver.multigrid import (
     FusedLoop,
     LevelOps,
@@ -70,11 +82,14 @@ from ..solver.multigrid import (
 from ..sparse import (
     ShuffleTransfer,
     _shuffle_layout,
+    cheb_step,
     numpy_dtype,
     sliced_bytes,
     sliced_from_scipy,
     sliced_layout_from_scipy,
     spmv,
+    spmv_add,
+    spmv_residual,
 )
 
 
@@ -336,7 +351,13 @@ class PartitionedOp:
     * ``Ah``: the halo parts as one SlicedEll over the rows that have a
       halo entry only, its columns into the halo buffer (partition ``j``'s
       halo set at ``j * halo_pad``), and ``out_row`` (int32) their rows in
-      ``y``; None where no partition has a halo.
+      ``y``, ``row_mask`` the same rows as the interior launch's row mask
+      (``ops/epilogue.py``); None where no partition has a halo.
+
+    :meth:`residual`, :meth:`add` and :meth:`cheb` are the cycle's
+    operations on ``self(x)`` in the same two launches (``sparse.spmv_residual``,
+    ``spmv_add`` and ``cheb_step`` send a PartitionedOp here), bitwise
+    equal to ``epilogue_plain`` after ``self(x)``.
     """
 
     def __init__(self, A_csr, plan: HaloPlan, mesh: SolverMesh, stride_in: int,
@@ -382,6 +403,7 @@ class PartitionedOp:
         self.Ah = sliced_from_scipy(_csr(row.reshape(-1), hcol, hval,
                                          (brow.size, dl * Hp)), dtype).to(dev)
         self.out_row = torch.from_numpy(brow.astype(np.int32)).to(dev)
+        self.row_mask = row_mask_from_rows(brow, self.A.nrows).to(dev)
         self.halo_real = sum(len(plan.halo_cols[g]) for g in range(lo, hi))
         src_l, dst_l, send_idx, recv_pos, recv_dst = [], [], [], [], []
         recv_off = 0     # receive-buffer rows taken so far
@@ -455,23 +477,66 @@ class PartitionedOp:
             self._buffers[key] = buf
         return buf
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.Ah is None:
-            return spmv(self.A, x)
+    def _exchange(self, x):
+        """Post the exchange and fill the device-local halo positions;
+        returns ``finish()``, which waits for the transfers, scatters the
+        received rows and returns the halo buffer.  The interior launch
+        goes between the two: it reads no halo value."""
         halo = self._halo_buffer(x)
         work, recvbuf = self._post(x)
         if self.local is not None:
             src, dst = self.local
             halo.index_copy_(0, dst, x.index_select(0, src))
-        y = spmv(self.A, x)                   # interior: needs no halo value
-        if work is not None:
-            for w in work:
-                w.wait()
-            if self.recv_sel is not None:
-                sel, dst = self.recv_sel
-                halo.index_copy_(0, dst, recvbuf.index_select(0, sel))
+
+        def finish():
+            if work is not None:
+                for w in work:
+                    w.wait()
+                if self.recv_sel is not None:
+                    sel, dst = self.recv_sel
+                    halo.index_copy_(0, dst, recvbuf.index_select(0, sel))
+            return halo
+
+        return finish
+
+    def _halo_args(self, halo):
         Ah = self.Ah
-        return halo_spmv(Ah.slice_ptr, Ah.col, Ah.val, self.out_row, halo, y, Ah.tpr)
+        return Ah.slice_ptr, Ah.col, Ah.val, self.out_row, halo
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.Ah is None:
+            return spmv(self.A, x)
+        finish = self._exchange(x)
+        y = spmv(self.A, x)
+        return halo_spmv(*self._halo_args(finish()), y, self.Ah.tpr)
+
+    def residual(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``b - self(x)``: the residual on the interior's rows without a
+        halo part, then on the boundary rows after their halo add."""
+        if self.Ah is None:
+            return spmv_residual(self.A, x, b)
+        finish = self._exchange(x)
+        y = spmv_residual(self.A, x, b, self.row_mask)
+        return halo_spmv_residual(*self._halo_args(finish()), y, b, self.Ah.tpr)
+
+    def add(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """``z + self(x)`` (the prolongation's ``x + U e``, e as x here)."""
+        if self.Ah is None:
+            return spmv_add(self.A, x, z)
+        finish = self._exchange(x)
+        y = spmv_add(self.A, x, z, self.row_mask)
+        return halo_spmv_add(*self._halo_args(finish()), y, z, self.Ah.tpr)
+
+    def cheb(self, dinv, b, x, d, c1, c2: float, keep_d: bool = True):
+        """One smoother step on ``self`` (``sparse.cheb_step``): returns
+        ``(x + d_new, d_new)``, d_new None where ``keep_d`` is false."""
+        if self.Ah is None:
+            return cheb_step(self.A, dinv, b, x, d, c1, c2, keep_d)
+        finish = self._exchange(x)
+        x_out, d_new = cheb_step(self.A, dinv, b, x, d, c1, c2, keep_d, self.row_mask)
+        x_out, _ = halo_spmv_cheb(*self._halo_args(finish()), x_out, x, b, dinv,
+                                  d_new if keep_d else d, c1, c2, self.Ah.tpr)
+        return x_out, d_new
 
     def info(self) -> dict:
         """Halo size and shifts; the interior's layout, stored entries and
@@ -609,8 +674,10 @@ class HaloContext:
         return out.reshape(rc.shape)
 
     def _residual_num_sq(self, b, x, criteria: int) -> torch.Tensor:
-        """Per-column squared residual numerators, summed over the mesh."""
-        r = spmv(self.levels[0].A, x) - b
+        """Per-column squared residual numerators, summed over the mesh.
+        The residual is ``b - A x`` (two launches); the JAX package forms
+        ``A x - b``, its exact negation, and every criterion is even in r."""
+        r = spmv_residual(self.levels[0].A, x, b)
         r2 = r[:, None] if r.ndim == 1 else r
         if criteria in (0, 3):
             loc = (r2 * r2).sum(0)

@@ -519,42 +519,53 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
 
 # The operations of the multigrid cycle around an SpMV.  SlicedEll and
 # SlicedDiag compute each in one launch, the SpMV kernel with an epilogue
-# (ops/epilogue.py); every other operator (a callable such as the halo
-# path's PartitionedOp, the JAX package's layouts, EllMatrix) takes the
-# plain composition over spmv.  The choice is by type: a kernel that fails
-# raises.
+# (ops/epilogue.py; SlicedDiag has no add, which only transfers need); the
+# halo path's PartitionedOp in its two launches, the masked interior and
+# halo_spmv with the same epilogue (parallel/halo.py); every other operator
+# (another callable, the JAX package's layouts, EllMatrix, a SlicedDiag's
+# add) takes the plain composition over spmv.  The choice is by type: a
+# kernel that fails raises.  ``row_mask`` (the halo path's interior
+# launch) leaves the raw sum on the rows whose bit is set.
 
 
 def _diag_layout_args(A):
     return A.slice_ptr, A.base, A.delta, A.val, A.wide_ptr, A.wide_col
 
 
-def spmv_residual(A, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _partitioned(A) -> bool:
+    from .parallel.halo import PartitionedOp   # imports this module
+
+    return isinstance(A, PartitionedOp)
+
+
+def spmv_residual(A, x: torch.Tensor, b: torch.Tensor, row_mask=None) -> torch.Tensor:
     """``b - A @ x``."""
     if isinstance(A, SlicedEll):
         _check_cols(A, x)
         return _sliced.sliced_spmv_residual(A.slice_ptr, A.col, A.val, x, b,
-                                            A.nrows, A.tpr)
+                                            A.nrows, A.tpr, row_mask)
     if isinstance(A, SlicedDiag):
         _check_cols(A, x)
-        return _sdiag.sliced_diag_spmv_residual(*_diag_layout_args(A), x, b, A.nrows)
-    return epilogue_plain("residual", spmv(A, x), b=b)
+        return _sdiag.sliced_diag_spmv_residual(*_diag_layout_args(A), x, b, A.nrows,
+                                                row_mask)
+    if row_mask is None and _partitioned(A):
+        return A.residual(x, b)
+    return epilogue_plain("residual", spmv(A, x), b=b, row_mask=row_mask)
 
 
-def spmv_add(A, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def spmv_add(A, x: torch.Tensor, z: torch.Tensor, row_mask=None) -> torch.Tensor:
     """``z + A @ x``."""
     if isinstance(A, SlicedEll):
         _check_cols(A, x)
         return _sliced.sliced_spmv_add(A.slice_ptr, A.col, A.val, x, z, A.nrows,
-                                       A.tpr)
-    if isinstance(A, SlicedDiag):
-        _check_cols(A, x)
-        return _sdiag.sliced_diag_spmv_add(*_diag_layout_args(A), x, z, A.nrows)
-    return epilogue_plain("add", spmv(A, x), z=z)
+                                       A.tpr, row_mask)
+    if row_mask is None and _partitioned(A):
+        return A.add(x, z)
+    return epilogue_plain("add", spmv(A, x), z=z, row_mask=row_mask)
 
 
 def cheb_step(A, dinv: torch.Tensor, b: torch.Tensor, x: torch.Tensor, d, c1,
-              c2: float, keep_d: bool = True):
+              c2: float, keep_d: bool = True, row_mask=None):
     """One Chebyshev (or Jacobi) smoother step: ``r = b - A x``, ``d = c1 d
     + (c2 dinv) r`` (``(c2 dinv) r`` where ``c1`` is None: a first step,
     which takes no d), ``x + d``.  ``dinv`` is (n,), broadcast over the
@@ -563,13 +574,15 @@ def cheb_step(A, dinv: torch.Tensor, b: torch.Tensor, x: torch.Tensor, d, c1,
     if isinstance(A, SlicedEll):
         _check_cols(A, x)
         return _sliced.sliced_spmv_cheb(A.slice_ptr, A.col, A.val, x, b, dinv, d,
-                                        c1, c2, A.nrows, A.tpr, keep_d)
+                                        c1, c2, A.nrows, A.tpr, keep_d, row_mask)
     if isinstance(A, SlicedDiag):
         _check_cols(A, x)
         return _sdiag.sliced_diag_spmv_cheb(*_diag_layout_args(A), x, b, dinv, d,
-                                            c1, c2, A.nrows, keep_d)
+                                            c1, c2, A.nrows, keep_d, row_mask)
+    if row_mask is None and _partitioned(A):
+        return A.cheb(dinv, b, x, d, c1, c2, keep_d)
     return epilogue_plain("cheb", spmv(A, x), b=b, dinv=dinv, x=x, d=d, c1=c1,
-                          c2=c2, keep_d=keep_d)
+                          c2=c2, keep_d=keep_d, row_mask=row_mask)
 
 
 def _shuffle_layout(rows: np.ndarray, cols: np.ndarray, nr: int, nc: int,
@@ -718,7 +731,8 @@ class ShuffleTransfer:
         return spmv(self.U, e)
 
     def prolong_add(self, e, x):
-        """``x + U e``: the coarse correction, in one launch on a sliced U."""
+        """``x + U e``: the coarse correction, in one launch on a sliced U
+        (two on the halo path's partitioned U)."""
         return spmv_add(self.U, e, x)
 
     def restrict(self, r):

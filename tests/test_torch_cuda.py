@@ -11,7 +11,10 @@ in f64 (the kernels sum slots in their own order, the plain versions in
 torch's reduction order).  Solves go through sliced_spmv (and
 sliced_diag_spmv where a level past the diagonal-run gate is SlicedDiag),
 the halo path's boundary rows through halo_spmv; shuffle_spmv and
-diag_spmv run on the JAX package's layouts only.  ``mode="fused"`` (the
+diag_spmv run on the JAX package's layouts only.  Every epilogue (of
+sliced_spmv, sliced_diag_spmv and halo_spmv, and the row-masked interior
+launches of the halo path) is held bitwise equal to the kernel's
+plain-mode SpMV followed by the torch ops.  ``mode="fused"`` (the
 captured cycle under a conditional WHILE node, one graph launch and one
 host wait per warm solve) and CG's graphed 32-iteration unit are held
 bitwise equal to the host loop and the eager unit, and so is the halo
@@ -320,9 +323,10 @@ def test_sliced_epilogue_matches_kernel_then_torch(cuda, op, case, dtype, d):
                         kw, mode, slmod)
 
 
-SDIAG_EPILOGUE = [(op, kind) for op in EPILOGUE_OPS
+# sliced_diag_spmv has no add (no transfer is SlicedDiag)
+SDIAG_EPILOGUE = [(op, kind) for op in EPILOGUE_OPS if op != "add"
                   for kind in ("banded", "all_wide", "small", "empty_slices",
-                               "torus")] + [("add", "restriction"), ("add", "cols_77")]
+                               "torus")]
 
 
 @pytest.mark.cuda
@@ -341,7 +345,6 @@ def test_sliced_diag_epilogue_matches_kernel_then_torch(cuda, op, kind, dtype, d
     args = (o.slice_ptr, o.base, o.delta, o.val, o.wide_ptr, o.wide_col)
     fused = {
         "residual": lambda x, b: sdmod.sliced_diag_spmv_residual(*args, x, b, n),
-        "add": lambda x, z: sdmod.sliced_diag_spmv_add(*args, x, z, n),
         "cheb": lambda x, b, dinv, dd, c1, c2, keep: sdmod.sliced_diag_spmv_cheb(
             *args, x, b, dinv, dd, c1, c2, n, keep),
     }[mode]
@@ -398,9 +401,13 @@ def test_wrappers_validate_operands(cuda):
     with pytest.raises(ValueError):
         sdmod.sliced_diag_spmv_residual(*args, x, b[:-1], op.nrows)
     with pytest.raises(TypeError):
-        sdmod.sliced_diag_spmv_add(*args, x, b.double(), op.nrows)
+        sdmod.sliced_diag_spmv_residual(*args, x, b.double(), op.nrows)
     with pytest.raises(ValueError):
-        sdmod.sliced_diag_spmv_add(*args, x, b.cpu(), op.nrows)
+        sdmod.sliced_diag_spmv_residual(*args, x, b.cpu(), op.nrows)
+    mask = torch.zeros(-(-op.nrows // 32), dtype=torch.int32, device=cuda)
+    for bad in (mask[:-1], mask.long(), mask.cpu()):
+        with pytest.raises(ValueError):
+            sdmod.sliced_diag_spmv_residual(*args, x, b, op.nrows, row_mask=bad)
     with pytest.raises(ValueError):     # a step with c1 needs the previous d
         sdmod.sliced_diag_spmv_cheb(*args, x, b, dinv, None, 0.5, 1.0, op.nrows)
     with pytest.raises(ValueError):
@@ -421,12 +428,26 @@ def test_wrappers_validate_operands(cuda):
         slmod.sliced_spmv_cheb(h.slice_ptr, h.col, h.val, torch.zeros(77, device=cuda),
                                torch.zeros(200, device=cuda),
                                torch.ones(200, device=cuda), None, None, 1.0, 200)
+    # halo_spmv's epilogues: vectors of y's shape, y never sharing their memory
+    hargs = (h.slice_ptr, h.col, h.val, out_row, hb)
+    z = torch.zeros(300, device=cuda)
+    hmod.halo_spmv_add(*hargs, y, z)
+    with pytest.raises(ValueError):
+        hmod.halo_spmv_residual(*hargs, y, z[:-1])
+    with pytest.raises(ValueError):
+        hmod.halo_spmv_add(*hargs, y, y)
+    with pytest.raises(ValueError):     # a later step reads the previous d
+        hmod.halo_spmv_cheb(*hargs, y, z, z.clone(), torch.ones(300, device=cuda),
+                            None, 0.5, 1.0)
+    with pytest.raises(ValueError):
+        hmod.halo_spmv_cheb(*hargs, y, z, z.clone(), torch.ones(300, device=cuda),
+                            z, 0.5, 1.0)
 
 
 def _reset_launches():
     smod.launches = dmod.launches = slmod.launches = sdmod.launches = 0
     hmod.launches = 0
-    for mod in (slmod, sdmod):
+    for mod in (slmod, sdmod, hmod):
         mod.launches_by_mode.update(dict.fromkeys(mod.launches_by_mode, 0))
 
 
@@ -638,6 +659,145 @@ def test_halo_kernel_matches_plain(cuda, nb, nh, n, seed, dtype, d, tpr):
     _close(y, torch.from_numpy(host).to(cuda, dtype), dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", EPILOGUE_OPS)
+@pytest.mark.parametrize("nb,nh,n,seed", HALO_PARTS)
+def test_halo_epilogue_matches_kernel_then_torch(cuda, nb, nh, n, seed, op, dtype, d):
+    """Every epilogue of halo_spmv at every threads-per-row count, bitwise
+    equal to the plain-mode halo_spmv launch followed by the torch ops on
+    the out rows (b, dinv, x and d taken there); the other rows of y and d
+    untouched; one launch each, to its mode, and none for an empty part."""
+    from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 7, nb)
+    rows = np.repeat(np.arange(nb), deg)
+    A = sp.csr_matrix((rng.standard_normal(rows.size),
+                       (rows, rng.integers(0, nh, rows.size))), shape=(nb, nh))
+    h = sparse.sliced_from_scipy(A, dtype=dtype).to(cuda)
+    out_row = torch.from_numpy(
+        np.sort(rng.choice(n, nb, replace=False)).astype(np.int32)).to(cuda)
+    args = (h.slice_ptr, h.col, h.val, out_row, _x(nh, d, dtype, seed, cuda))
+    kw, mode = _epilogue_case(op, n, n, d, dtype, cuda)
+    x = _x(n, d, dtype, seed + 2, cuda)                  # the iterate
+    keep = op != "jacobi"
+    d_buf = kw["d"] if kw.get("d") is not None else (
+        _x(n, d, dtype, seed + 3, cuda) if mode == "cheb" and keep else None)
+    o = out_row.long()
+
+    def at(t):
+        return t.index_select(0, o)
+
+    for tpr in slmod.TPRS:
+        y0 = _x(n, d, dtype, seed + 1, cuda)
+        ref = hmod.halo_spmv(*args, y0.clone(), tpr)     # the plain-mode launch
+        before, by_mode = hmod.launches, dict(hmod.launches_by_mode)
+        want = y0.clone()
+        if mode == "cheb":
+            d_in = None if d_buf is None else d_buf.clone()
+            y, d_out = hmod.halo_spmv_cheb(*args, y0.clone(), x, kw["b"], kw["dinv"],
+                                           d_in, kw["c1"], kw["c2"], tpr)
+            got_x, got_d = epilogue_plain(
+                "cheb", at(ref), b=at(kw["b"]), dinv=at(kw["dinv"]), x=at(x),
+                d=None if kw["c1"] is None else at(d_buf), c1=kw["c1"], c2=kw["c2"],
+                keep_d=keep)
+            want[o] = got_x
+            assert torch.equal(y, want)
+            if keep:
+                want_d = d_buf.clone()
+                want_d[o] = got_d
+                assert d_out is d_in and torch.equal(d_out, want_d)
+            else:
+                assert d_out is None
+        else:
+            vec = kw["b"] if mode == "residual" else kw["z"]
+            fn = hmod.halo_spmv_residual if mode == "residual" else hmod.halo_spmv_add
+            y = fn(*args, y0.clone(), vec, tpr)
+            want[o] = epilogue_plain(mode, at(ref), **{k: at(v) for k, v in kw.items()})
+            assert torch.equal(y, want)
+        torch.cuda.synchronize()
+        assert hmod.launches == before + (nb > 0)
+        assert hmod.launches_by_mode[mode] == by_mode[mode] + (nb > 0)
+
+
+MASKED_INTERIOR = [(op, kind) for kind in ("sliced", "sdiag") for op in EPILOGUE_OPS
+                   if not (kind == "sdiag" and op == "add")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op,kind", MASKED_INTERIOR)
+def test_masked_interior_matches_kernel_then_torch(cuda, op, kind, dtype, d):
+    """The row-masked launches of sliced_spmv (every threads-per-row
+    count) and sliced_diag_spmv (delta and wide slices): the epilogue on
+    the rows whose bit is clear, bitwise as the plain-mode kernel followed
+    by the torch ops; the raw sum on the others, where d is neither read
+    nor written (a slice all boundary rows, one with none)."""
+    from gravo_mg_tpu_torch.ops.epilogue import (
+        epilogue_plain, masked_rows, row_mask_from_rows,
+    )
+
+    A = (_sliced_matrix(1000, 1000, 7000, 30, 0) if kind == "sliced"
+         else _sliced_diag_matrix("torus"))
+    n = A.shape[0]
+    rng = np.random.default_rng(4)
+    rows = np.union1d(np.arange(32), rng.choice(n, n // 3, replace=False))
+    rows = rows[(rows < 32) | (rows >= 64)]
+    mask = row_mask_from_rows(rows, n).to(cuda)
+    m = masked_rows(mask, n)
+    m = m[:, None] if d > 1 else m
+    x = _x(n, d, dtype, 2, cuda)
+    kw, mode = _epilogue_case(op, n, n, d, dtype, cuda)
+    if kind == "sliced":
+        o = sparse.sliced_from_scipy(A, dtype=dtype).to(cuda)
+        a = (o.slice_ptr, o.col, o.val)
+        runs = [(lambda x, t=tpr: slmod.sliced_spmv(*a, x, n, t), {
+            "residual": lambda x, b, t=tpr: slmod.sliced_spmv_residual(
+                *a, x, b, n, t, row_mask=mask),
+            "add": lambda x, z, t=tpr: slmod.sliced_spmv_add(*a, x, z, n, t,
+                                                             row_mask=mask),
+            "cheb": lambda x, b, dinv, dd, c1, c2, keep, t=tpr: slmod.sliced_spmv_cheb(
+                *a, x, b, dinv, dd, c1, c2, n, t, keep, row_mask=mask)}, slmod)
+            for tpr in slmod.TPRS]
+    else:
+        o = sparse.sliced_diag_from_scipy(A, dtype=dtype).to(cuda)
+        a = (o.slice_ptr, o.base, o.delta, o.val, o.wide_ptr, o.wide_col)
+        runs = [(lambda x: sdmod.sliced_diag_spmv(*a, x, n), {
+            "residual": lambda x, b: sdmod.sliced_diag_spmv_residual(
+                *a, x, b, n, row_mask=mask),
+            "cheb": lambda x, b, dinv, dd, c1, c2, keep: sdmod.sliced_diag_spmv_cheb(
+                *a, x, b, dinv, dd, c1, c2, n, keep, row_mask=mask)}, sdmod)]
+    for spmv_plain_mode, fns, mod in runs:
+        y = spmv_plain_mode(x)
+        before, by_mode = mod.launches, dict(mod.launches_by_mode)
+        if mode == "cheb":
+            keep = op != "jacobi"
+            d_in = None if kw["d"] is None else kw["d"].clone()
+            x_out, d_out = fns["cheb"](x, kw["b"], kw["dinv"], d_in, kw["c1"], kw["c2"],
+                                       keep)
+            ref_x, ref_d = epilogue_plain("cheb", y, x=x, keep_d=keep, row_mask=mask,
+                                          **kw)
+            assert torch.equal(x_out, ref_x)
+            if not keep:
+                assert d_out is None
+            elif d_in is None:       # a first step's d: unwritten on masked rows
+                zero = torch.zeros_like(ref_d)
+                assert torch.equal(torch.where(m, zero, d_out), ref_d)
+            else:
+                assert d_out is d_in and torch.equal(d_out, ref_d)
+        else:
+            vec = kw["b"] if mode == "residual" else kw["z"]
+            got = fns[mode](x, vec)
+            assert torch.equal(got, epilogue_plain(mode, y, row_mask=mask, **kw))
+            assert torch.equal(torch.where(m, got, y), y)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1
+        assert mod.launches_by_mode[mode] == by_mode[mode] + 1
+
+
 @pytest.fixture(scope="module")
 def torus_65k():
     from gravo_mg_tpu_torch.utils.meshgen import torus_mesh
@@ -834,8 +994,8 @@ def test_epilogue_cycle_and_fused_solve_match_plain_compositions(
     assert np.array_equal(x, p[1]) and iters == p[2] and res == p[3] and trace == p[4]
     assert ran == p[5] == iters > 1 and (n_sd, n_sl) == (p[6], p[7])
     assert n_sd == 10 * ran
-    assert sd_modes == {"plain": 0, "residual": 2 * ran, "add": 0, "cheb": 8 * ran}
-    assert p[8] == {"plain": 10 * ran, "residual": 0, "add": 0, "cheb": 0}
+    assert sd_modes == {"plain": 0, "residual": 2 * ran, "cheb": 8 * ran}
+    assert p[8] == {"plain": 10 * ran, "residual": 0, "cheb": 0}
     levels = len(ctx.levels)
     assert sl_modes["add"] == levels * ran
     assert sl_modes["cheb"] == 8 * (levels - 1) * ran
@@ -939,6 +1099,86 @@ def test_halo_fused_graph_matches_traced_bitwise(cuda, halo_torus, d):
     loop = next(iter(hctx._fused.values()))
     hctx.release_graphs()
     assert hctx._fused == {} and loop.graph.graph is None and loop.graph._loop is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_partitioned_operations_on_cuda_match_plain_composition(cuda, halo_torus,
+                                                                 dtype, d):
+    """The halo path's level-0 operations on the card (4 partitions; A0's
+    stacked interior SlicedDiag, U0's SlicedEll): each Chebyshev step,
+    Jacobi step and residual of A0 and the add of U0 is two launches (the
+    masked interior, then halo_spmv in the same mode) and equals the plain
+    composition over the partitioned apply bit for bit."""
+    from gravo_mg_tpu_torch.ops.epilogue import epilogue_plain
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext, make_solver_mesh
+
+    V, M, neigh, lhs = halo_torus
+    solver = MultigridSolver(V, neigh, M, lower_bound=200, dtype=dtype, device=cuda,
+                             diag_min_groups=16)
+    hctx = HaloContext(solver._context(lhs), make_solver_mesh(4, cuda))
+    A, U = hctx.levels[0].A, hctx.levels[0].U.U
+    assert isinstance(A.A, sparse.SlicedDiag) and isinstance(U.A, sparse.SlicedEll)
+    n = A.A.nrows
+    for op in EPILOGUE_OPS:
+        pop = U if op == "add" else A
+        mod = slmod if op == "add" else sdmod
+        kw, mode = _epilogue_case(op, n, n, d, dtype, cuda)
+        x = _x(pop.A.ncols if op == "add" else n, d, dtype, 3, cuda)
+        y = pop(x)
+        _reset_launches()
+        if mode == "cheb":
+            keep = op != "jacobi"
+            d_in = None if kw["d"] is None else kw["d"].clone()
+            got = pop.cheb(kw["dinv"], kw["b"], x, d_in, kw["c1"], kw["c2"], keep)
+            want = epilogue_plain("cheb", y, x=x, keep_d=keep, **kw)
+            assert torch.equal(got[0], want[0])
+            assert (got[1] is None) == (want[1] is None)
+            if keep:
+                assert torch.equal(got[1], want[1])
+        elif mode == "residual":
+            assert torch.equal(pop.residual(x, kw["b"]),
+                               epilogue_plain("residual", y, **kw))
+        else:
+            assert torch.equal(pop.add(x, kw["z"]), epilogue_plain("add", y, **kw))
+        torch.cuda.synchronize()
+        assert mod.launches_by_mode[mode] == mod.launches == 1
+        assert hmod.launches_by_mode[mode] == hmod.launches == 1
+
+
+@pytest.mark.cuda
+def test_halo_fused_solve_matches_plain_compositions(cuda, halo_torus):
+    """Four partitions in one process: the fused halo solve through the
+    epilogue launches against the same solve with the plain compositions
+    patched in (chip_smoke.plain_compositions) and against the traced
+    solve: x, cycles, residual and the loop's trace bit for bit;
+    halo_spmv in every mode, and fewer kernels in the captured cycle."""
+    from chip_smoke import plain_compositions
+    from gravo_mg_tpu_torch.parallel.halo import HaloContext, make_solver_mesh
+
+    V, M, neigh, lhs = halo_torus
+    rhs = M @ np.random.default_rng(5).standard_normal(len(V))
+    hctx = HaloContext(_halo_solver(V, M, neigh)._context(lhs),
+                       make_solver_mesh(4, cuda))
+    runs = {}
+    for how in ("epilogues", "plain"):
+        hctx.release_graphs()
+        with plain_compositions() if how == "plain" else contextlib.nullcontext():
+            hctx.solve(rhs, tol=1e-5, max_iter=50)            # cold: captures
+            _reset_launches()
+            x, iters, res = hctx.solve(rhs, tol=1e-5, max_iter=50)
+            (loop,) = hctx._fused.values()
+            runs[how] = (x, iters, res, loop.state.trace[:iters].tolist(),
+                         dict(hmod.launches_by_mode), loop.graph.step_nodes["kernel"])
+    e, p = runs["epilogues"], runs["plain"]
+    assert np.array_equal(e[0], p[0]) and e[1:4] == p[1:4] and e[1] > 1
+    assert all(e[4][m] > 0 for m in ("residual", "add", "cheb"))
+    assert p[4]["plain"] > 0 and p[4]["residual"] == p[4]["add"] == p[4]["cheb"] == 0
+    assert e[5] < p[5], (e[5], p[5])
+    traced = hctx.solve(rhs, tol=1e-5, max_iter=50, mode="traced")
+    assert np.array_equal(traced[0], e[0]) and traced[1:] == e[1:3]
+    hctx.release_graphs()
 
 
 @pytest.mark.cuda

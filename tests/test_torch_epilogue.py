@@ -15,10 +15,11 @@ SpMV.  Three tests:
   replaces in the cycle: this fixes the operation order
   (``c2 * dinv`` first, then ``* r``, ``c1 * d``, their sum, ``x + d``)
   that the kernels' epilogues reproduce on the card;
-* the dispatch by type: a callable operator (the halo path's
-  ``PartitionedOp``), the gather-based ``Prolongation`` and the JAX
-  layouts take the plain composition over ``spmv``, bitwise equal to
-  those expressions, and never reach the sliced wrappers.
+* the dispatch by type: the gather-based ``Prolongation``, the JAX
+  layouts and ``EllMatrix`` take the plain composition over ``spmv``,
+  bitwise equal to those expressions, and never reach the sliced
+  wrappers (the halo path's ``PartitionedOp`` takes its own route:
+  ``tests/test_torch_halo_epilogue.py``).
 """
 
 import jax.numpy as jnp
@@ -33,7 +34,6 @@ from gravo_mg_tpu.solver import smoothers as ref_smoothers
 from gravo_mg_tpu_torch import convert, sparse
 from gravo_mg_tpu_torch.ops import sliced_diag_spmv as sdmod
 from gravo_mg_tpu_torch.ops import sliced_spmv as slmod
-from gravo_mg_tpu_torch.parallel import halo
 from gravo_mg_tpu_torch.solver import residual, smoothers
 
 torch.set_num_threads(2)
@@ -228,26 +228,16 @@ def test_operation_bitwise_equals_inline_expression(contexts, case, layout, dtyp
     _assert_bitwise(_ported(case, A, U, **kw), _inline(case, A, U, **kw))
 
 
-def _partitioned(A_csr, t_dt, D=2):
-    """A square operator as a halo PartitionedOp over D partitions on the
-    CPU, and x's length (D * stride)."""
-    rl, stride = halo.partition_rows(A_csr.shape[0], D)
-    op = halo.PartitionedOp(A_csr, halo._halo_plan(A_csr, D, rl, rl),
-                            halo.make_solver_mesh(D, "cpu"), stride, stride, t_dt)
-    return op, D * stride
-
-
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("kind", ["partitioned", "prolongation", "reference",
-                                  "ell"])
+@pytest.mark.parametrize("kind", ["prolongation", "reference", "ell"])
 def test_dispatch_by_type_takes_plain_composition(contexts, monkeypatch, kind, dtype):
-    """Operators other than SlicedEll/SlicedDiag take the plain
-    composition over ``spmv``, bitwise equal to the inline expressions,
-    and the sliced wrappers are never called for them."""
+    """Operators other than SlicedEll, SlicedDiag and PartitionedOp take
+    the plain composition over ``spmv``, bitwise equal to the inline
+    expressions, and the sliced wrappers are never called for them."""
     _, t_dt, _ = DTYPES[dtype]
     for mod, names in ((slmod, ("sliced_spmv_residual", "sliced_spmv_add",
                                 "sliced_spmv_cheb")),
-                       (sdmod, ("sliced_diag_spmv_residual", "sliced_diag_spmv_add",
+                       (sdmod, ("sliced_diag_spmv_residual",
                                 "sliced_diag_spmv_cheb"))):
         for name in names:
             def refuse(*args, _name=name, **kw):
@@ -255,12 +245,7 @@ def test_dispatch_by_type_takes_plain_composition(contexts, monkeypatch, kind, d
             monkeypatch.setattr(mod, name, refuse)
     ctx = contexts[dtype]
     A_csr, U_csr = _sphere_level(contexts, dtype)
-    if kind == "partitioned":
-        A, n = _partitioned(A_csr, t_dt)
-        assert callable(A)
-        U = sparse.ShuffleTransfer(*(_partitioned(A_csr, t_dt)[0] for _ in range(2)))
-        e_rows = n
-    elif kind == "prolongation":
+    if kind == "prolongation":
         A = sparse.ell_from_scipy(A_csr, dtype=t_dt)
         U = sparse.make_prolongation(*_prolongation_arrays(U_csr), U_csr.shape[1],
                                      dtype=t_dt)
@@ -276,7 +261,7 @@ def test_dispatch_by_type_takes_plain_composition(contexts, monkeypatch, kind, d
         U = sparse.ShuffleTransfer(sparse.ell_from_scipy(U_csr, dtype=t_dt),
                                    sparse.ell_from_scipy(U_csr.T.tocsr(), dtype=t_dt))
         e_rows = U_csr.shape[1]
-    n = A.shape[0] if kind != "partitioned" else n
+    n = A.shape[0]
     rng = np.random.default_rng(9)
     for d in (1, 3):
         def v(m):
@@ -286,8 +271,6 @@ def test_dispatch_by_type_takes_plain_composition(contexts, monkeypatch, kind, d
                   dinv=torch.from_numpy(0.5 + rng.random(n)).to(t_dt),
                   c1=0.3717, c2=0.8391)
         for case in ("cheb_first", "cheb_next", "jacobi", "residual", "add"):
-            if case == "add" and kind == "partitioned":
-                kw["e"] = v(n)
             _assert_bitwise(_ported(case, A, U, **kw), _inline(case, A, U, **kw))
 
 
