@@ -26,6 +26,7 @@ from .solver.direct import cg_solve, direct_solve
 from .solver.multigrid import MultigridSolveContext, SolverConfig
 from .sparse import make_prolongation, resolve_device
 from .utils.io import write_convergence_csv, write_timing_csv
+from .utils.profiler import span
 
 
 def _pattern_key(lhs) -> str:
@@ -210,9 +211,13 @@ class MultigridSolver:
     # keeps both contexts' layouts instead of replanning on every swap.
     _CONTEXT_LRU = 4
 
-    def _context(self, lhs) -> MultigridSolveContext:
-        key = (_pattern_key(lhs), id(self.hierarchy))
-        ctx = self._contexts.pop(key, None)  # re-insert to refresh LRU order
+    def _context(self, lhs, timing=None) -> MultigridSolveContext:
+        """The context of ``lhs``'s pattern, its values refreshed where they
+        changed; the pattern key and the value compare are timed into
+        ``timing``."""
+        with span(timing, "facade_pattern_key", host_only=True):
+            key = (_pattern_key(lhs), id(self.hierarchy))
+            ctx = self._contexts.pop(key, None)  # re-insert to refresh LRU order
         cfg = SolverConfig(
             cycle_type=self.cycle_type,
             pre_iters=self.pre_iters,
@@ -228,10 +233,12 @@ class MultigridSolver:
                 self._contexts.pop(next(iter(self._contexts))).release_graphs()
         else:
             # Same pattern: value-only update unless the values match too.
-            lhs2 = lhs.tocsr()
-            if lhs2.data.shape != ctx.lhs_csr.data.shape or not np.array_equal(
-                lhs2.data, ctx.lhs_csr.data
-            ):
+            with span(timing, "facade_value_compare", host_only=True):
+                lhs2 = lhs.tocsr()
+                same = lhs2.data.shape == ctx.lhs_csr.data.shape and np.array_equal(
+                    lhs2.data, ctx.lhs_csr.data
+                )
+            if not same:
                 ctx.update_lhs(lhs2)
         self._contexts[key] = ctx
         return ctx
@@ -249,19 +256,36 @@ class MultigridSolver:
         (``MultigridSolveContext.solve``); ``solver_timing`` then holds
         ``host_reads``, ``graph_launches``, ``graph_captures``,
         ``graph_capture_ms``, ``graph_build_ms`` and ``graph_pool_mib``.
+
+        ``solver_timing`` holds this call's spans, in host ms:
+        ``facade_pattern_key`` (the pattern's hash and the context lookup),
+        ``facade_value_compare`` (the values against the context's; absent
+        where the call built the context), ``solve_upload`` (with its
+        child ``solve_deflation``), ``cycles`` (the loop), and
+        ``solve_copy_back``; on the card ``loop_device``, the loop's device
+        time between two CUDA events; ``solver_total``, the sum of
+        ``solve_upload``, ``cycles`` and ``solve_copy_back``, plus
+        ``plan_build`` and ``reduction`` where this call built the context
+        or refreshed its values.  Those two and the ``setup_*`` keys are
+        the context's latest set-up.  Spans that launch no device work are
+        also ranges of their name on a recording ``torch.profiler``'s host
+        timeline, beside ranges with no key: ``solve_undeflate`` (the
+        copy back's host add), ``update_galerkin``, ``update_spectral``
+        and ``update_coarse_factor`` (the host steps of a value refresh).
         """
         if not sp.issparse(lhs):
             lhs = sp.csr_matrix(lhs)
         rhs = np.asarray(rhs)
         squeeze = rhs.ndim == 1
-        ctx = self._context(lhs)
+        facade: dict = {}
+        ctx = self._context(lhs, facade)
         x, iters, res, conv = ctx.solve(
             rhs, x0,
             tol=self.tolerance, criteria=self.stopping_criteria,
             max_iter=self.max_iter, mode=mode,
         )
         self.convergence = conv
-        self.solver_timing = dict(ctx.timing)
+        self.solver_timing = {**ctx.timing, **facade}
         if self.verbose:
             print(f"multigrid: {iters} cycles, residual {res:.3e}")
         return x[:, None] if (not squeeze and x.ndim == 1) else x

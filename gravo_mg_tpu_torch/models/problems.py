@@ -32,6 +32,7 @@ from ..utils.laplacian import (
 )
 from ..utils.neighbors import neighbors_from_stiffness
 from ..utils.normalize import normalize_area, normalize_bounding_box
+from ..utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -129,24 +130,31 @@ class ConformalFlow:
         self.M = M.tocsr()
 
     def step(self, *, tol: float = 1e-4) -> np.ndarray:
-        """One flow step; returns the updated positions."""
-        self._rebuild_mass()
-        lhs = (self.M + self.tau * self.S).tocsr()
-        rhs = self.M @ self.V
+        """One flow step; returns the updated positions.  The step's host
+        spans (``flow_mass``, ``flow_assembly``, ``flow_normalize``, ms) join
+        the solve's in ``solver.solver_timing``."""
+        timing: dict = {}
+        with span(timing, "flow_mass", host_only=True):
+            self._rebuild_mass()
+        with span(timing, "flow_assembly", host_only=True):
+            lhs = (self.M + self.tau * self.S).tocsr()
+            rhs = self.M @ self.V
         old_tol, self.solver.tolerance = self.solver.tolerance, float(tol)
         try:
             x = self.solver.solve(lhs, rhs)
         finally:
             self.solver.tolerance = old_tol
-        V = np.asarray(x)
-        # Area (or bounding-box for point clouds) renormalization and
-        # recentering, as in conformal_flow.py's per-step normalize.
-        V = V - V.mean(axis=0, keepdims=True)
-        if self.F is not None:
-            V = normalize_area(V, self.F)
-        else:
-            scale = np.abs(V).max()
-            V = V / max(scale, 1e-30)
+        with span(timing, "flow_normalize", host_only=True):
+            V = np.asarray(x)
+            # Area (or bounding-box for point clouds) renormalization and
+            # recentering, as in conformal_flow.py's per-step normalize.
+            V = V - V.mean(axis=0, keepdims=True)
+            if self.F is not None:
+                V = normalize_area(V, self.F)
+            else:
+                scale = np.abs(V).max()
+                V = V / max(scale, 1e-30)
+        self.solver.solver_timing.update(timing)
         self.V = V
         return V
 

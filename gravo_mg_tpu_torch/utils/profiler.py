@@ -15,6 +15,13 @@ equivalent::
 
 :func:`torch_trace` records a ``torch.profiler`` trace (host, and on a GPU
 the device's kernels) of a block and writes it as a Chrome trace.
+
+:class:`span` times one step of a call into that call's timing dict
+(``solver_timing``), and names it on the profiler's host timeline while a
+session records::
+
+    with span(self.timing, "solve_deflation", host_only=True):
+        ...
 """
 
 from __future__ import annotations
@@ -86,6 +93,49 @@ def print_profile(file=None) -> None:
 def reset_profile() -> None:
     with _lock:
         _nodes.clear()
+
+
+def _profiler_enabled() -> bool:
+    import torch
+
+    return torch._C._autograd._profiler_enabled()
+
+
+class span:
+    """Store the block's host-clock milliseconds in ``timing[key]``
+    (``timing=None`` stores nothing); ``t0`` is its start on that clock.
+
+    With ``host_only=True`` and a ``torch.profiler`` session recording, the
+    block is also ``record_function(key)`` on the host timeline.  Only a
+    block that launches no device work (no kernel, copy or fill) may say
+    ``host_only``: the profiler puts a range that encloses device work on
+    the device timeline too, where it reads as one more device operation.
+    With no session the span costs two ``perf_counter`` calls, one flag
+    test and one dict store.
+    """
+
+    __slots__ = ("timing", "key", "host_only", "_range", "t0")
+
+    def __init__(self, timing: Optional[dict], key: str, *, host_only: bool):
+        self.timing, self.key, self.host_only = timing, key, host_only
+
+    def __enter__(self):
+        self._range = None
+        if self.host_only and _profiler_enabled():
+            from torch.profiler import record_function
+
+            self._range = record_function(self.key)
+            self._range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        ms = (time.perf_counter() - self.t0) * 1000
+        if self.timing is not None:
+            self.timing[self.key] = ms
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
 
 
 _registered = False
