@@ -11,7 +11,9 @@ never falls back to the CPU on its own.
 
 from __future__ import annotations
 
-import hashlib
+import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -29,12 +31,73 @@ from .utils.io import write_convergence_csv, write_timing_csv
 from .utils.profiler import span
 
 
-def _pattern_key(lhs) -> str:
-    lhs = lhs.tocsr()
-    h = hashlib.sha1()
-    h.update(np.ascontiguousarray(lhs.indptr).tobytes())
-    h.update(np.ascontiguousarray(lhs.indices).tobytes())
-    return h.hexdigest()
+_memcmp = ctypes.CDLL(None).memcmp
+_memcmp.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t)
+_memcmp.restype = ctypes.c_int
+# One core's memcmp reaches a fraction of the host's memory bandwidth, so a
+# compare is cut into up to _COMPARE_PARTS parts of at least _PART bytes,
+# run at once by the facade's compare threads (ctypes drops the GIL).
+_COMPARE_PARTS = min(8, os.cpu_count() or 1)
+_PART = 1 << 20
+
+
+def _alike(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype
+
+
+def _same_bytes(a: np.ndarray, own: np.ndarray, pool) -> bool:
+    """Whether ``a`` holds the bytes of ``own``, a contiguous array of the
+    same shape and dtype: ``memcmp`` at memory speed, with no temporary,
+    its parts over ``pool``'s threads and the caller's."""
+    a = np.ascontiguousarray(a)
+    n, pa, po = a.nbytes, a.ctypes.data, own.ctypes.data
+    k = max(1, min(_COMPARE_PARTS, n // _PART))
+    step = -(-n // k) or 1
+    parts = [pool.submit(_memcmp, pa + o, po + o, min(step, n - o))
+             for o in range(step, n, step)]
+    same = n == 0 or _memcmp(pa, po, min(step, n)) == 0
+    # wait for every part: ``a`` may be a copy that the threads still read
+    return not any([f.result() for f in parts]) and same
+
+
+class _OwnedLHS:
+    """A context's key in ``MultigridSolver._contexts``: the hierarchy the
+    context was built on and the facade's own copies of the ``indptr``,
+    ``indices`` and ``data`` it was last set up with.  Compared with them
+    byte for byte, a caller's CSR matrix finds its context without a hash,
+    and an edit of the caller's arrays in place shows at the next call."""
+
+    __slots__ = ("hierarchy", "shape", "indptr", "indices", "data")
+
+    def __init__(self, hierarchy, lhs):
+        self.hierarchy, self.shape = hierarchy, lhs.shape
+        self.indptr, self.indices, self.data = (
+            np.array(a) for a in (lhs.indptr, lhs.indices, lhs.data))
+
+    def admits(self, hierarchy, lhs) -> bool:
+        """The prefilter: the same hierarchy and shape, and index arrays
+        of the same lengths and dtypes."""
+        return (hierarchy is self.hierarchy and lhs.shape == self.shape
+                and _alike(lhs.indptr, self.indptr)
+                and _alike(lhs.indices, self.indices))
+
+    def same_pattern(self, lhs, pool) -> bool:
+        return (_same_bytes(lhs.indptr, self.indptr, pool)
+                and _same_bytes(lhs.indices, self.indices, pool))
+
+    def same_values(self, lhs, pool) -> bool:
+        """Byte equality: ``-0.0`` against ``0.0`` reads as a change,
+        which costs a refresh and never reuses a stale system."""
+        return (_alike(lhs.data, self.data)
+                and _same_bytes(lhs.data, self.data, pool))
+
+    def take_values(self, lhs):
+        """Copy the caller's values into the owned buffer (a new one only
+        where their dtype changed: a fresh array costs page faults)."""
+        if _alike(lhs.data, self.data):
+            np.copyto(self.data, lhs.data)
+        else:
+            self.data = np.array(lhs.data)
 
 
 class MultigridSolver:
@@ -123,6 +186,10 @@ class MultigridSolver:
         self._hierarchy_ours = self.hierarchy
         self._hierarchy_sig21: Optional[HierarchyData] = None
         self._contexts: dict = {}
+        # threads that compare a call's LHS with the contexts' own copies,
+        # started at the first compare that is split
+        self._compare_pool = ThreadPoolExecutor(
+            _COMPARE_PARTS - 1 or 1, thread_name_prefix="facade-compare")
         self._cg_units: dict = {}     # cg_solve's captured unit (direct.py)
         self._active_hierarchy = Hierarchy.OURS
         self.convergence: List[tuple] = []
@@ -213,11 +280,23 @@ class MultigridSolver:
 
     def _context(self, lhs, timing=None) -> MultigridSolveContext:
         """The context of ``lhs``'s pattern, its values refreshed where they
-        changed; the pattern key and the value compare are timed into
-        ``timing``."""
+        changed.  The lookup (the prefilter and the byte compares of the
+        pattern, newest context first) and the value compare are timed
+        into ``timing``, beside ``facade_patterns_compared``: the stored
+        patterns this call compared byte for byte."""
         with span(timing, "facade_pattern_key", host_only=True):
-            key = (_pattern_key(lhs), id(self.hierarchy))
-            ctx = self._contexts.pop(key, None)  # re-insert to refresh LRU order
+            lhs = lhs.tocsr()
+            key, compared = None, 0
+            for cand in reversed(self._contexts):
+                if cand.admits(self.hierarchy, lhs):
+                    compared += 1
+                    if cand.same_pattern(lhs, self._compare_pool):
+                        key = cand
+                        break
+            # re-inserted below, which refreshes the LRU order
+            ctx = self._contexts.pop(key) if key is not None else None
+        if timing is not None:
+            timing["facade_patterns_compared"] = compared
         cfg = SolverConfig(
             cycle_type=self.cycle_type,
             pre_iters=self.pre_iters,
@@ -229,17 +308,16 @@ class MultigridSolver:
                 self.hierarchy, lhs, self.mass, cfg, dtype=self.dtype,
                 device=self.device, diag_min_groups=self.diag_min_groups,
             )
+            key = _OwnedLHS(self.hierarchy, lhs)
             while len(self._contexts) >= self._CONTEXT_LRU:
                 self._contexts.pop(next(iter(self._contexts))).release_graphs()
         else:
             # Same pattern: value-only update unless the values match too.
             with span(timing, "facade_value_compare", host_only=True):
-                lhs2 = lhs.tocsr()
-                same = lhs2.data.shape == ctx.lhs_csr.data.shape and np.array_equal(
-                    lhs2.data, ctx.lhs_csr.data
-                )
+                same = key.same_values(lhs, self._compare_pool)
             if not same:
-                ctx.update_lhs(lhs2)
+                ctx.update_lhs(lhs)
+                key.take_values(lhs)
         self._contexts[key] = ctx
         return ctx
 
@@ -258,8 +336,9 @@ class MultigridSolver:
         ``graph_capture_ms``, ``graph_build_ms`` and ``graph_pool_mib``.
 
         ``solver_timing`` holds this call's spans, in host ms:
-        ``facade_pattern_key`` (the pattern's hash and the context lookup),
-        ``facade_value_compare`` (the values against the context's; absent
+        ``facade_pattern_key`` (the lookup: the pattern compared byte for
+        byte with the facade's own copy of each candidate context's),
+        ``facade_value_compare`` (the values against the owned copy; absent
         where the call built the context), ``solve_upload`` (with its
         child ``solve_deflation``), ``cycles`` (the loop), and
         ``solve_copy_back``; on the card ``loop_device``, the loop's device
@@ -267,11 +346,14 @@ class MultigridSolver:
         ``solve_upload``, ``cycles`` and ``solve_copy_back``, plus
         ``plan_build`` and ``reduction`` where this call built the context
         or refreshed its values.  Those two and the ``setup_*`` keys are
-        the context's latest set-up.  Spans that launch no device work are
-        also ranges of their name on a recording ``torch.profiler``'s host
-        timeline, beside ranges with no key: ``solve_undeflate`` (the
-        copy back's host add), ``update_galerkin``, ``update_spectral``
-        and ``update_coarse_factor`` (the host steps of a value refresh).
+        the context's latest set-up.  ``facade_patterns_compared`` counts
+        the stored patterns this call compared byte for byte (1 on a warm
+        call with the newest context's pattern, 0 where none could match).
+        Spans that launch no device work are also ranges of their name on
+        a recording ``torch.profiler``'s host timeline, beside ranges with
+        no key: ``solve_undeflate`` (the copy back's host add),
+        ``update_galerkin``, ``update_spectral`` and
+        ``update_coarse_factor`` (the host steps of a value refresh).
         """
         if not sp.issparse(lhs):
             lhs = sp.csr_matrix(lhs)
