@@ -29,10 +29,10 @@ class Control:
         self.dtype = getattr(torch, dtype)
         self.np_dtype = {"float32": np.float32, "float64": np.float64}.get(dtype)
 
-    def solver(self, cfg, V, F, M):
+    def solver(self, cfg, inp):
         from benchmark.reference.solver import ReferenceSolver
 
-        return ReferenceSolver(M, self.dtype, self.device,
+        return ReferenceSolver(inp.M, self.dtype, self.device,
                                tolerance=cfg["solver"]["tolerance"])
 
     def flow(self, cfg, V_in, F):

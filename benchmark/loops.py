@@ -16,26 +16,59 @@ import time
 import numpy as np
 
 from .record import Call
+from .reference import inputs
 from .reference.check import FlowReference, judge_flow, judge_solves
-from .reference.mesh import (
-    cotan_laplacian,
-    mass_barycentric,
-    mean_edge_length,
-    mesh_from_config,
-    system_matrix,
-)
+from .reference.mesh import system_matrix
 
 ITEMSIZE = {"float32": 4, "float64": 8}
+# the configuration's ``hierarchy`` options, MultigridSolver's arguments
+HIERARCHY = ("ratio", "nested", "check_voronoi", "sampling_strategy",
+             "weighting")
 
 
 def solver_kwargs(cfg: dict) -> dict:
-    """The configuration's solver settings as ``MultigridSolver`` arguments
-    (the dtype apart)."""
+    """The configuration's solver settings and its optional ``hierarchy``
+    block as ``MultigridSolver`` arguments (the dtype apart); the block's
+    ``sampling_strategy`` and ``weighting`` are the names of the program's
+    ``Sampling`` and ``Weighting`` members."""
     s = cfg["solver"]
-    return dict(lower_bound=s["lower_bound"], tolerance=s["tolerance"],
-                stopping_criteria=s["stopping_criteria"],
-                max_iter=s["max_iter"], cycle_type=s["cycle_type"],
-                pre_iters=s["pre_iters"], post_iters=s["post_iters"])
+    kw = dict(lower_bound=s["lower_bound"], tolerance=s["tolerance"],
+              stopping_criteria=s["stopping_criteria"],
+              max_iter=s["max_iter"], cycle_type=s["cycle_type"],
+              pre_iters=s["pre_iters"], post_iters=s["post_iters"])
+    h = dict(cfg.get("hierarchy", {}))
+    unknown = set(h) - set(HIERARCHY)
+    if unknown:
+        raise ValueError(f"unknown hierarchy options {sorted(unknown)}; "
+                         f"known: {HIERARCHY}")
+    if "sampling_strategy" in h or "weighting" in h:
+        from gravo_mg_tpu_torch.enums import Sampling, Weighting
+
+        for key, enum in (("sampling_strategy", Sampling),
+                          ("weighting", Weighting)):
+            if key in h:
+                h[key] = enum[h[key]]
+    return {**kw, **h}
+
+
+def neighbors(cfg: dict, inp):
+    """The solver's neighbour array, by the configuration's ``neighbors``:
+    ``"faces"`` (the default, the 1-ring of F) or ``"stiffness"`` (the
+    sparsity of S, as the reference's comparisons take for every input)."""
+    from gravo_mg_tpu_torch.utils.neighbors import (
+        neighbors_from_faces,
+        neighbors_from_stiffness,
+    )
+
+    how = cfg.get("neighbors", "faces")
+    if how == "stiffness":
+        return neighbors_from_stiffness(inp.S)
+    if how != "faces":
+        raise ValueError(f"unknown neighbors {how!r}: faces or stiffness")
+    if inp.F is None:
+        raise ValueError('a point cloud has no faces: give "neighbors": '
+                         '"stiffness"')
+    return neighbors_from_faces(inp.F)
 
 
 class Program:
@@ -49,11 +82,10 @@ class Program:
 
         return getattr(torch, cfg["solver"]["dtype"])
 
-    def solver(self, cfg, V, F, M):
+    def solver(self, cfg, inp):
         from gravo_mg_tpu_torch import MultigridSolver
-        from gravo_mg_tpu_torch.utils.neighbors import neighbors_from_faces
 
-        return MultigridSolver(V, neighbors_from_faces(F), M,
+        return MultigridSolver(inp.V, neighbors(cfg, inp), inp.M,
                                dtype=self._dtype(cfg), device=self.device,
                                **solver_kwargs(cfg))
 
@@ -96,14 +128,15 @@ class Reservoir:
                 self.items[j] = item
 
 
-def _rhs_pool(traffic, V, F, M, rng):
+def _rhs_pool(traffic, inp, rng):
+    V, M = inp.V, inp.M
     n, size = V.shape[0], int(traffic["pool"])
     if traffic["rhs"] == "mass_randn":
         cols = int(traffic["columns"])
         B = rng.standard_normal((n, cols * size))
         pool = [M @ B[:, i * cols:(i + 1) * cols] for i in range(size)]
     elif traffic["rhs"] == "mass_positions_jitter":
-        h = mean_edge_length(V, F) * float(traffic["jitter"])
+        h = inp.h * float(traffic["jitter"])
         pool = [M @ (V + h * rng.standard_normal(V.shape)) for _ in range(size)]
     else:
         raise ValueError(f"unknown rhs {traffic['rhs']!r}")
@@ -143,15 +176,15 @@ class SolveCell:
 
     def __init__(self, system, cfg, traffic, seed, log):
         rng = np.random.default_rng(seed)
-        V, F = mesh_from_config(cfg["mesh"])
-        self.M = mass_barycentric(V, F)
-        self.lhs = system_matrix(cfg, cotan_laplacian(V, F), self.M)
-        self.pool = _rhs_pool(traffic, V, F, self.M, rng)
-        log(f"inputs: n={V.shape[0]} nnz={self.lhs.nnz} pool={len(self.pool)}")
+        inp = inputs.make(cfg["mesh"])
+        self.M = inp.M
+        self.lhs = system_matrix(cfg, inp.S, self.M)
+        self.pool = _rhs_pool(traffic, inp, rng)
+        log(f"inputs: n={inp.V.shape[0]} nnz={self.lhs.nnz} pool={len(self.pool)}")
         self.order_rng = np.random.default_rng([seed, 2])
         self.idx = 0
         self.mode = traffic["mode"]
-        self.solver = system.solver(cfg, V, F, self.M)
+        self.solver = system.solver(cfg, inp)
         log("solver built")
         self.first_timing = None
         for i in range(int(traffic["warmup_calls"])):
@@ -191,8 +224,13 @@ class FlowCell:
 
     def __init__(self, system, cfg, traffic, seed, log):
         rng = np.random.default_rng(seed)
-        V, self.F = mesh_from_config(cfg["mesh"])
-        h = mean_edge_length(V, self.F) * float(traffic["start_jitter"])
+        inp = inputs.make(cfg["mesh"])
+        if inp.F is None:
+            raise ValueError(
+                f"the flow kind needs a mesh with faces; {cfg['mesh']['kind']!r} "
+                "has none (the flow's reference is built on faces)")
+        V, self.F = inp.V, inp.F
+        h = inp.h * float(traffic["start_jitter"])
         self.V_in = V + h * rng.standard_normal(V.shape)
         self.tau, self.tol = cfg["tau"], cfg["solver"]["tolerance"]
         self.session = int(traffic["session_steps"])

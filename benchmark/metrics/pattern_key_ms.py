@@ -1,6 +1,7 @@
 """Mean over solves of the facade's pattern-key span,
-``solver_timing["facade_pattern_key"]``: the SHA-1 of the LHS pattern and
-the context lookup."""
+``solver_timing["facade_pattern_key"]``: the context lookup, an exact byte
+compare of the LHS pattern (``indptr``, ``indices``) against the facade's
+own copy of each stored context's pattern."""
 
 from benchmark.record import timing_mean
 

@@ -1,10 +1,10 @@
 """Frozen copies of the mesh generator and the operator assembly.
 
-The benchmark makes its inputs with these, and the reference recomputes the
-operators with them, so a change to the program's own versions
-(``gravo_mg_tpu_torch/utils/{meshgen,laplacian,normalize}.py``) moves
-neither the inputs nor the yardstick.  Plain NumPy/SciPy: nothing of the
-program is imported here.
+The benchmark makes its torus inputs with these (``inputs/torus.py``), and
+the reference recomputes the operators with them, so a change to the
+program's own versions (``gravo_mg_tpu_torch/utils/{meshgen,laplacian,
+normalize}.py``) moves neither the inputs nor the yardstick.  Plain
+NumPy/SciPy: nothing of the program is imported here.
 """
 
 from __future__ import annotations
@@ -93,18 +93,6 @@ def mean_edge_length(V: np.ndarray, F: np.ndarray) -> float:
     F = np.asarray(F, dtype=np.int64)
     e = V[F[:, [1, 2, 0]]] - V[F]
     return float(np.linalg.norm(e, axis=2).mean())
-
-
-def mesh_from_config(mesh: dict):
-    """``(V, F)`` of a configuration's ``mesh`` entry (area-normalized
-    where it says so)."""
-    if mesh["kind"] != "torus":
-        raise ValueError(f"unknown mesh kind {mesh['kind']!r}")
-    V, F = torus_mesh(mesh["nu"], mesh["nv"], R=mesh.get("R", 1.0),
-                      r=mesh.get("r", 0.4))
-    if mesh.get("normalize_area", False):
-        V = normalize_area(V, F)
-    return V, F
 
 
 def system_matrix(cfg: dict, S, M):

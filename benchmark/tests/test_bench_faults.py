@@ -32,8 +32,8 @@ class Broken(loops.Program):
         super().__init__("cpu")
         self.fault = fault
 
-    def solver(self, cfg, V, F, M):
-        solver = super().solver(cfg, V, F, M)
+    def solver(self, cfg, inp):
+        solver = super().solver(cfg, inp)
         _break_solve(solver, self.fault)
         return solver
 

@@ -28,6 +28,7 @@ IMPORT_REFERENCE = """
 import json, sys
 sys.path.insert(0, {root!r})
 import benchmark.reference.check, benchmark.reference.mesh, benchmark.reference.solver
+import benchmark.reference.inputs.torus, benchmark.reference.inputs.point_cloud
 import benchmark.control
 print(json.dumps(sorted(sys.modules)))
 """

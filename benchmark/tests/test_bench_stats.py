@@ -29,6 +29,13 @@ def test_p95_is_taken_over_all_calls_with_the_tail_in_it():
     assert p95(range(1, 101)) == pytest.approx(95.05)
 
 
+def test_the_per_layer_p95_leaves_out_profiled_calls():
+    walls = [200.0] * 10 + [10.0] * 95 + [100.0] * 5
+    run = _run(walls, 2.0, profiled=10)
+    want = statistics.quantiles(walls[10:], n=100, method="inclusive")[94]
+    assert load_reader("solve_ms_p95.fused")(run) == pytest.approx(want)
+
+
 def test_flow_step_ms_is_the_window_over_the_steps():
     run = _run([500.0] * 40, 20.0, kind="flow")
     assert load_reader("flow_step_ms")(run) == pytest.approx(500.0)

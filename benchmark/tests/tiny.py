@@ -7,10 +7,20 @@ BENCH = pathlib.Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 
 
-def tiny_root(tmp_path, nu=32, nv=16, lower_bound=64):
+def cut(cfg, nu=32, nv=16, n=2000):
+    """Cut a configuration's mesh in place: a torus to ``nu`` x ``nv``,
+    a point cloud to ``n`` points."""
+    if cfg["mesh"]["kind"] == "torus":
+        cfg["mesh"].update(nu=nu, nv=nv)
+    else:
+        cfg["mesh"]["n"] = n
+
+
+def tiny_root(tmp_path, nu=32, nv=16, lower_bound=64, n=2000):
     """A checkout-like root under ``tmp_path``: BENCHMARK.json's cells with
-    each configuration's torus cut to ``nu`` x ``nv``, small pools and
-    samples, and the real metric readers."""
+    each configuration's torus cut to ``nu`` x ``nv`` and each point cloud
+    to ``n`` points, small pools and samples, and the real metric
+    readers."""
     root = pathlib.Path(tmp_path)
     bench = root / "benchmark"
     (bench / "configs").mkdir(parents=True)
@@ -19,7 +29,7 @@ def tiny_root(tmp_path, nu=32, nv=16, lower_bound=64):
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in spec["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
-        cfg["mesh"].update(nu=nu, nv=nv)
+        cut(cfg, nu=nu, nv=nv, n=n)
         cfg["solver"]["lower_bound"] = lower_bound
         c["file"] = f"benchmark/configs/{c['name']}.json"
         (root / c["file"]).write_text(json.dumps(cfg))
