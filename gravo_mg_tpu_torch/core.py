@@ -346,7 +346,12 @@ class MultigridSolver:
         ``solve_upload``, ``cycles`` and ``solve_copy_back``, plus
         ``plan_build`` and ``reduction`` where this call built the context
         or refreshed its values.  Those two and the ``setup_*`` keys are
-        the context's latest set-up.  ``facade_patterns_compared`` counts
+        the context's latest set-up.  The context's layout counters, set
+        once at its set-up: ``layout_slots`` and ``layout_nnz``, the stored
+        slots (padding included) and structural nonzeros over every level
+        operator's layout and both directions of every transfer, and
+        ``levels_sliced_diag`` and ``levels_sliced_ell``, the levels the
+        planner gave each layout.  ``facade_patterns_compared`` counts
         the stored patterns this call compared byte for byte (1 on a warm
         call with the newest context's pattern, 0 where none could match).
         Spans that launch no device work are also ranges of their name on

@@ -446,6 +446,27 @@ def coarse_inverse_host(A_coarse_csr, null_fix: bool):
     return Ainv, Ad
 
 
+def _layout_counts(plans, chain, transfers, U_csr) -> dict:
+    """The planner's layout counters, set once per context: stored slots
+    (padding included) and structural nonzeros over every level operator's
+    layout and both directions of every transfer, and how many levels were
+    planned as SlicedDiag and as SlicedEll."""
+    slots = nnz = 0
+    for plan, A in zip(plans, chain):
+        nnz += A.nnz
+        # a plan's first pattern array is its slice_ptr; ELL stores K x N
+        slots += (max(int(np.diff(A.indptr).max(initial=1)), 1) * A.shape[0]
+                  if plan[0] == "ell" else int(plan[1][0][-1]))
+    for t, Ucsr in zip(transfers, U_csr):
+        nnz += 2 * Ucsr.nnz
+        slots += (int(t.U.col.numel()) + int(t.UT.col.numel())
+                  if isinstance(t, ShuffleTransfer) else 2 * t.host_cols.size)
+    tags = [plan[0] for plan in plans]
+    return {"layout_slots": float(slots), "layout_nnz": float(nnz),
+            "levels_sliced_diag": float(tags.count("sdiag")),
+            "levels_sliced_ell": float(tags.count("sliced"))}
+
+
 # timing keys only a fused solve sets
 _FUSED_TIMING = ("trace_timestamps_synthetic", "host_reads", "graph_launches",
                  "graph_captures", "graph_capture_ms", "graph_build_ms",
@@ -526,6 +547,8 @@ class MultigridSolveContext:
             )
         self.timing["setup_transfers"] = (time.perf_counter() - t1) * 1000
         self.timing["shuffle_plan"] = (time.perf_counter() - t0) * 1000
+        self.timing.update(_layout_counts(self._plans, chain, self.transfers,
+                                          self.U_csr))
 
         # Map each layout's src (flattened (K, N) ELL position, slot * N +
         # row) straight to csr data positions (indptr[row] + slot), so the
