@@ -340,10 +340,13 @@ class MultigridSolver:
         byte with the facade's own copy of each candidate context's),
         ``facade_value_compare`` (the values against the owned copy; absent
         where the call built the context), ``solve_upload`` (with its
-        child ``solve_deflation``), ``cycles`` (the loop), and
-        ``solve_copy_back``; on the card ``loop_device``, the loop's device
-        time between two CUDA events; ``solver_total``, the sum of
-        ``solve_upload``, ``cycles`` and ``solve_copy_back``, plus
+        child ``solve_deflation``, the host's share of the deflation: the
+        rhs as a contiguous f64 array and the LHS's cached gate), ``cycles``
+        (the loop), and ``solve_copy_back`` (the device's un-deflation and
+        the copy); the counter ``deflated_columns`` (the columns whose
+        constant mode the call removed); on the card ``loop_device``, the
+        loop's device time between two CUDA events; ``solver_total``, the
+        sum of ``solve_upload``, ``cycles`` and ``solve_copy_back``, plus
         ``plan_build`` and ``reduction`` where this call built the context
         or refreshed its values.  Those two and the ``setup_*`` keys are
         the context's latest set-up.  The context's layout counters, set
@@ -356,8 +359,7 @@ class MultigridSolver:
         call with the newest context's pattern, 0 where none could match).
         Spans that launch no device work are also ranges of their name on
         a recording ``torch.profiler``'s host timeline, beside ranges with
-        no key: ``solve_undeflate`` (the copy back's host add),
-        ``update_galerkin``, ``update_spectral`` and
+        no key: ``update_galerkin``, ``update_spectral`` and
         ``update_coarse_factor`` (the host steps of a value refresh).
         """
         if not sp.issparse(lhs):

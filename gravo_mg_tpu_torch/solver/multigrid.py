@@ -321,9 +321,10 @@ def fused_solve(cfg: SolverConfig, levels, coarse, M, Minv_diag, b, x0, den,
 DEFLATION_FLOOR = 16.0
 
 
-def deflation_alpha(row_sums: np.ndarray, rhs2: np.ndarray,
-                    diag_scale: Optional[float] = None) -> np.ndarray:
-    """Exact rank-1 constant-mode deflation coefficients (f64, (d,)).
+def deflation_denominator(row_sums: np.ndarray,
+                          diag_scale: Optional[float] = None) -> Optional[float]:
+    """The constant-mode deflation's gate and denominator: ``sum(A @ 1)``
+    (f64) where the deflation applies, else None.  A constant of the LHS.
 
     Deflate iff the row-sum vector is sign-coherent,
     ``|sum(row_sums)| > 0.1 * sum(|row_sums|)``, and, when the matrix
@@ -341,8 +342,35 @@ def deflation_alpha(row_sums: np.ndarray, rhs2: np.ndarray,
         floor = (DEFLATION_FLOOR * row_sums.shape[0]
                  * np.finfo(np.float64).eps * float(diag_scale))
     if abs_sum > floor and abs(denom) > 0.1 * abs_sum:
-        return np.asarray(rhs2.sum(axis=0) / denom, dtype=np.float64)
-    return np.zeros(rhs2.shape[1])
+        return denom
+    return None
+
+
+def deflation_alpha(row_sums: np.ndarray, rhs2: np.ndarray,
+                    diag_scale: Optional[float] = None) -> np.ndarray:
+    """Exact rank-1 constant-mode deflation coefficients (f64, (d,)):
+    ``sum(b) / sum(A @ 1)`` per column where :func:`deflation_denominator`
+    lets the deflation apply, else zeros."""
+    denom = deflation_denominator(row_sums, diag_scale)
+    if denom is None:
+        return np.zeros(rhs2.shape[1])
+    return np.asarray(rhs2.sum(axis=0) / denom, dtype=np.float64)
+
+
+def device_deflation(rhs64: torch.Tensor, row_sums: torch.Tensor,
+                     denom: Optional[float], dtype):
+    """The constant-mode deflation on the rhs's device, in f64:
+    ``(alpha, rhs_c, b)``.  ``rhs64`` is the (n,) or (n, d) f64 rhs,
+    ``row_sums`` the (n,) f64 ``A @ 1`` and ``denom`` the LHS's
+    :func:`deflation_denominator`; alpha is the (d,) f64 ``sum(rhs) /
+    denom`` per column (zeros where ``denom`` is None), ``rhs_c`` the rhs
+    in the compute dtype and ``b = rhs_c - alpha * (A @ 1)``, formed in
+    f64 and then rounded."""
+    r2 = rhs64[:, None] if rhs64.ndim == 1 else rhs64
+    alpha = r2.new_zeros(r2.shape[1]) if denom is None else r2.sum(0) / denom
+    rhs_c = rhs64.to(dtype)
+    rs = row_sums if rhs64.ndim == 1 else row_sums[:, None]
+    return alpha, rhs_c, (rhs_c.double() - alpha * rs).to(dtype)
 
 
 def _drop_zeros(U_csr):
@@ -694,14 +722,16 @@ class MultigridSolveContext:
                 )
 
     def _analyze_lhs(self):
-        """f64 row sums (= A @ 1) and near-singularity detection, for the
-        exact constant-mode deflation (see solve()) and the coarse
-        nullspace fix (see coarse_factor_host)."""
+        """f64 row sums (= A @ 1), the deflation's gate and near-singularity
+        detection, for the exact constant-mode deflation (see solve()) and
+        the coarse nullspace fix (see coarse_factor_host)."""
         self.row_sums = np.asarray(
             self.lhs_csr.sum(axis=1), dtype=np.float64
         ).ravel()
         n = self.lhs_csr.shape[0]
         self.diag_scale = float(np.abs(self.lhs_csr.diagonal()).mean())
+        self.deflation_denom = deflation_denominator(self.row_sums,
+                                                     self.diag_scale)
         self.near_singular = (
             abs(float(self.row_sums.sum())) < 1e-6 * self.diag_scale * n
         )
@@ -787,40 +817,38 @@ class MultigridSolveContext:
         Before iterating, the constant near-null component is removed
         exactly: ``x = y + alpha*1`` with ``alpha = sum(b) / sum(A @ 1)``
         (f64), so the transformed RHS is mean-free and f32 cancellation
-        stays far below tolerance even for Poisson (eta*M + S).  Residual
-        denominators use the original RHS.
+        stays far below tolerance even for Poisson (eta*M + S).  The gate
+        and ``sum(A @ 1)`` are the LHS's (:func:`deflation_denominator`,
+        set by ``_analyze_lhs``); alpha, the deflation and the
+        un-deflation run on the device in f64, so the host makes no pass
+        over the rhs or the answer beyond the two copies.
+        ``timing["deflated_columns"]`` counts the columns deflated (d, or
+        0 where the gate refused).  Residual denominators use the original
+        RHS.
         """
         if mode not in ("traced", "fused"):
             raise ValueError(f"unknown solve mode {mode!r}")
         with span(self.timing, "solve_upload", host_only=False):
-            rhs = np.asarray(rhs, dtype=np.float64)
-            squeeze = rhs.ndim == 1
-            rhs2 = rhs[:, None] if squeeze else rhs
             with span(self.timing, "solve_deflation", host_only=True):
-                # (d,) f64
-                alpha = deflation_alpha(self.row_sums, rhs2, self.diag_scale)
-            # One compute-dtype upload of the raw rhs; the f64 deflation
-            # ``b = rhs - alpha * (A @ 1)`` runs on the device.
-            rhs_dev = torch.from_numpy(
-                np.ascontiguousarray(rhs2[:, 0] if squeeze else rhs2)
-            ).to(self.device, self.dtype)
-            alpha_dev = torch.from_numpy(
-                np.asarray(alpha[0] if squeeze else alpha[None, :])
-            ).to(self.device)
-            rs_dev = self._row_sums_dev if squeeze else self._row_sums_dev[:, None]
-            b = (rhs_dev.double() - alpha_dev * rs_dev).to(self.dtype)
-            den = residual_denominator(self.M, self.Minv_diag, rhs_dev, criteria)
+                rhs = np.ascontiguousarray(rhs, dtype=np.float64)
+                squeeze = rhs.ndim == 1
+                d = 1 if squeeze else rhs.shape[1]
+                denom = self.deflation_denom    # the LHS's gate, or None
+            # one f64 upload of the rhs as given; the deflation on the device
+            alpha, rhs_c, b = device_deflation(
+                torch.from_numpy(rhs).to(self.device), self._row_sums_dev,
+                denom, self.dtype)
+            den = residual_denominator(self.M, self.Minv_diag, rhs_c, criteria)
             if x0 is not None:
-                # The x0 deflation stays on the host in f64: a warm start of a
-                # near-singular system sits at O(alpha), and y0 = x0 - alpha is
-                # a cancellation that must happen before rounding.
-                x0 = np.asarray(x0, dtype=np.float64)
-                y0 = (x0[:, None] if x0.ndim == 1 else x0) - alpha[None, :]
-                x = torch.from_numpy(
-                    np.ascontiguousarray(y0[:, 0] if squeeze else y0)
-                ).to(self.device, self.dtype)
+                # A warm start of a near-singular system sits at O(alpha), and
+                # y0 = x0 - alpha is a cancellation done in f64 before rounding.
+                x0 = torch.from_numpy(
+                    np.ascontiguousarray(x0, dtype=np.float64)).to(self.device)
+                y0 = (x0[:, None] if x0.ndim == 1 else x0) - alpha
+                x = (y0[:, 0] if squeeze else y0).to(self.dtype)
             else:
                 x = torch.zeros_like(b)
+            self.timing["deflated_columns"] = float(0 if denom is None else d)
             cfg = self.cfg
             convergence: list = []
             self._sync()
@@ -836,14 +864,14 @@ class MultigridSolveContext:
                 # system, so one refined inverse apply solves it
                 # (multigrid_solver.cpp:1401).
                 x = _coarse_solve(self.coarse_op, b, cfg.coarse_null_project)
-                y2_ = x.double().cpu().numpy().reshape(rhs2.shape) + alpha[None, :]
-                res = self.residual(rhs2, y2_, criteria=criteria)
+                res = self.residual(rhs, (x.double() + alpha).cpu().numpy(),
+                                    criteria=criteria)
                 iters = 1
                 dispatched = 1
                 convergence = [((time.perf_counter() - t0) * 1000, res)]
             elif mode == "fused":
-                loop = self._fused_loop(None if squeeze else rhs2.shape[1],
-                                        criteria, max_iter)
+                loop = self._fused_loop(None if squeeze else d, criteria,
+                                        max_iter)
                 x, iters, res, trace, reads, launches = loop.run(b, x, den, tol)
                 dispatched = iters
                 elapsed = (time.perf_counter() - t0) * 1000
@@ -887,9 +915,9 @@ class MultigridSolveContext:
         self.dispatched = dispatched
         self.timing["residue"] = res
         with span(self.timing, "solve_copy_back", host_only=False):
-            y = x.double().cpu().numpy()
-            with span(None, "solve_undeflate", host_only=True):
-                out = (y[:, None] if squeeze else y) + alpha[None, :]
+            # the un-deflation x = y + alpha: one f64 add on the device, then
+            # one copy to the host
+            out = (x.double() + alpha).cpu().numpy()
         if events is not None:
             # the copy back waited for the stream, so both events are done
             self.timing["loop_device"] = events[0].elapsed_time(events[1])
@@ -897,7 +925,7 @@ class MultigridSolveContext:
             "solve_upload", "cycles", "solve_copy_back") + (
             ("plan_build", "reduction") if self._fresh else ()))
         self._fresh = False
-        return (out[:, 0] if squeeze else out), iters, res, convergence
+        return out, iters, res, convergence
 
     def residual(self, rhs, x, criteria: int = 2) -> float:
         """Exact residual of the original system, evaluated on the host in

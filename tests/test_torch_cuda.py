@@ -890,6 +890,47 @@ def test_fused_graph_matches_traced_bitwise(cuda, fused_torus, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 1), (torch.float64, 3)])
+def test_device_deflation_on_cuda_matches_host(cuda, fused_torus, monkeypatch,
+                                               dtype, d):
+    """The solve's alpha, formed on the card in f64, within 1e-12 of the
+    host's ``deflation_alpha``; the answer bit for bit the WHILE graph's
+    iterate in f64 plus that alpha added on the host, cold and warm."""
+    from gravo_mg_tpu_torch.solver import multigrid as mg
+
+    V, S, M, neigh, noise = fused_torus
+    lhs = (1e-6 * M + S).tocsr()
+    rhs = M @ (noise[:, 0] if d == 1 else noise)
+    ctx = _fused_solver(V, M, neigh, dtype)._context(lhs)
+    seen = []
+    deflate, run = mg.device_deflation, mg.FusedLoop.run
+
+    def device_deflation(*a):
+        out = deflate(*a)
+        seen.append(out[0].cpu())
+        return out
+
+    def fused_run(loop, *a):
+        out = run(loop, *a)
+        seen.append(out[0].double().cpu().numpy())
+        return out
+
+    monkeypatch.setattr(mg, "device_deflation", device_deflation)
+    monkeypatch.setattr(mg.FusedLoop, "run", fused_run)
+    rhs2 = rhs[:, None] if d == 1 else rhs
+    want = mg.deflation_alpha(ctx.row_sums, rhs2, ctx.diag_scale)
+    for _ in range(2):
+        seen.clear()
+        x = ctx.solve(rhs, mode="fused")[0]
+        alpha, y = seen
+        assert alpha.dtype == torch.float64 and alpha.shape == (d,)
+        np.testing.assert_allclose(alpha.numpy(), want, rtol=1e-12, atol=0)
+        host = (y[:, None] if d == 1 else y) + alpha.numpy()[None, :]
+        assert np.array_equal(x, host[:, 0] if d == 1 else host)
+        assert ctx.timing["deflated_columns"] == d
+
+
+@pytest.mark.cuda
 def test_fused_graph_stops_as_traced(cuda, fused_torus):
     """A warm solve whose first cycle meets tol runs one body; tol 0 with
     max_iter 3 runs 3 bodies and keeps 3 trace entries; both one launch,

@@ -34,7 +34,7 @@ SOLVE_KEYS = ("facade_pattern_key", "solve_upload", "solve_deflation",
               "cycles", "solve_copy_back", "solver_total")
 # program spans that enclose no device work: ranges on the profiler timeline
 TIMELINE = ("facade_pattern_key", "facade_value_compare", "solve_deflation",
-            "solve_undeflate", "update_galerkin", "update_spectral", "update_coarse_factor",
+            "update_galerkin", "update_spectral", "update_coarse_factor",
             "flow_mass", "flow_assembly", "flow_normalize")
 # program spans that enclose device work or read the device clock
 OFF_TIMELINE = ("solve_upload", "cycles", "solve_copy_back", "loop_device",
