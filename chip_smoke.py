@@ -347,8 +347,8 @@ def plain_compositions():
 
 def layouts(ctx):
     """Operator and transfer layouts a context planned, e.g.
-    A:[DiagEll, SlicedEll] U:[ShuffleTransfer]; EllMatrix and
-    Prolongation are the planner's choices for pathological padding."""
+    A:[SlicedDiag, SlicedEll] U:[ShuffleTransfer]; Prolongation is the
+    planner's choice for a transfer of pathological padding."""
     a = [type(lvl.A).__name__ for lvl in ctx.levels]
     u = [type(t).__name__ for t in ctx.transfers]
     return f"A:{a} U:{u}"
@@ -786,12 +786,10 @@ def main():
     from gravo_mg_tpu_torch.solver.direct import cg_operator
     from gravo_mg_tpu_torch.solver import direct as cg_direct
     from gravo_mg_tpu_torch.solver.device_loop import StepGraph
-    from gravo_mg_tpu_torch.solver.multigrid import (
-        _ell_pattern, _ell_values, release_loops,
-    )
+    from gravo_mg_tpu_torch.solver.multigrid import release_loops
     from gravo_mg_tpu_torch.sparse import (
         DiagEll, ShuffleTransfer, SlicedDiag, SlicedEll, diag_plan_arrays,
-        shuffle_from_scipy, sliced_bytes, sliced_diag_bytes, sliced_from_scipy,
+        ell_from_scipy, shuffle_from_scipy, sliced_bytes, sliced_diag_bytes, sliced_from_scipy,
     )
     from gravo_mg_tpu_torch.utils.laplacian import (
         cotan_laplacian, mass_barycentric, mass_voronoi,
@@ -1072,18 +1070,20 @@ def main():
         # on A0's DiagEll (the route they replaced; the planner no longer
         # builds it), cuSPARSE and the plain version.
         chain0 = ctx.chain_csr[0]
-        idx0, mask0 = _ell_pattern(chain0)
+        E0 = ell_from_scipy(chain0, dtype=torch.float64)
+        idx0 = E0.indices.numpy()
+        mask0 = np.arange(idx0.shape[0])[:, None] < np.diff(chain0.indptr)[None, :]
         t0 = time.perf_counter()
         start, tg, r0, src0 = diag_plan_arrays(idx0, mask0, chain0.shape[1])
         t_old_layout = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if ctx._plan_level(idx0, mask0)[0] != "sdiag":
+        if ctx._plan_level(chain0)[0] != "sdiag":
             raise AssertionError("the planner no longer picks SlicedDiag for A0")
         t_new_layout = time.perf_counter() - t0
-        v0 = np.append(_ell_values(chain0, idx0.shape[0]).reshape(-1), 0.0)[src0]
+        v0 = np.append(E0.values.numpy().reshape(-1), 0.0)[src0]
         D0 = DiagEll(torch.from_numpy(start), torch.from_numpy(r0),
                      torch.from_numpy(v0.astype(np.float32)), tg, *chain0.shape).to(dev)
-        del idx0, mask0, r0, src0, v0
+        del E0, idx0, mask0, r0, src0, v0
         log(f"phase kernels: A0 layout on the host: diag_plan_arrays (DiagEll, "
             f"what the planner built before) {t_old_layout:.2f} s, "
             f"the planner's SlicedDiag plan (_plan_level) {t_new_layout:.2f} s; "

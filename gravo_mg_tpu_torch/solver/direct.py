@@ -21,16 +21,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..sparse import (
-    ell_from_scipy, numpy_dtype, resolve_device, sliced_layout_from_scipy, spmv,
-)
+from ..sparse import numpy_dtype, resolve_device, sliced_layout_from_scipy, spmv
 from .device_loop import StepGraph
 
-# CG's operator falls back to transposed ELL when the SlicedEll layout
-# would store beyond max(PAD_FACTOR nnz, PAD_FLOOR) entries (the transfer
-# cap of MultigridSolveContext._build_transfer).
-PAD_FACTOR = 24
-PAD_FLOOR = 1 << 24
 # The host reads CG's residual norm (a device sync) every CHECK_EVERY
 # iterations only; those iterations are one replay of a captured unit.
 CHECK_EVERY = 32
@@ -75,12 +68,8 @@ def direct_solve(lhs_csr, rhs: np.ndarray, timing: Optional[dict] = None):
 
 def cg_operator(lhs_csr, dtype=torch.float32):
     """The CG operator: SlicedDiag or SlicedEll, whichever streams fewer
-    bytes per apply (the planner's rule, ``sparse.sliced_rule``),
-    or transposed ELL where the sliced layout would store beyond
-    ``max(PAD_FACTOR nnz, PAD_FLOOR)`` entries."""
-    cap = max(PAD_FACTOR * lhs_csr.nnz, PAD_FLOOR)
-    A = sliced_layout_from_scipy(lhs_csr, dtype=dtype, size_cap=cap)
-    return A if A is not None else ell_from_scipy(lhs_csr, dtype=dtype)
+    bytes per apply (the planner's rule, ``sparse.sliced_rule``)."""
+    return sliced_layout_from_scipy(lhs_csr, dtype=dtype)
 
 
 class _CGUnit:

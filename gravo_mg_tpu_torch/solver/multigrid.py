@@ -40,14 +40,13 @@ import torch
 from ..enums import CycleType, Smoother
 from ..hierarchy.builder import Hierarchy
 from ..sparse import (
-    EllMatrix,
     ShuffleTransfer,
     SlicedDiag,
     SlicedEll,
     numpy_dtype,
     resolve_device,
     sliced_from_scipy,
-    sliced_plan_arrays,
+    sliced_pattern,
     sliced_rule,
     spmv_residual,
 )
@@ -61,7 +60,7 @@ from .smoothers import chebyshev, jacobi
 class LevelOps:
     """Per-level operator bundle used by the cycle."""
 
-    A: object                # SlicedDiag | SlicedEll | EllMatrix (| DiagEll)
+    A: object                # SlicedDiag | SlicedEll (| DiagEll)
     diag_inv: torch.Tensor
     lam_max: float
     U: object                # ShuffleTransfer | Prolongation
@@ -402,30 +401,6 @@ def galerkin_chain_scipy(lhs_csr, U_csr_list) -> list:
     return chain
 
 
-def _ell_pattern(A_csr):
-    """Transposed-ELL pattern (idx, structural mask) of a csr matrix."""
-    degree = np.diff(A_csr.indptr)
-    k = max(int(degree.max()) if degree.size else 1, 1)
-    n = A_csr.shape[0]
-    idx = np.zeros((k, n), dtype=np.int32)
-    slot = np.arange(A_csr.indices.shape[0]) - np.repeat(A_csr.indptr[:-1], degree)
-    row_ids = np.repeat(np.arange(n), degree)
-    idx[slot, row_ids] = A_csr.indices
-    mask = np.arange(k)[:, None] < degree[None, :]
-    return idx, mask
-
-
-def _ell_values(A_csr, k: int) -> np.ndarray:
-    """(K, N) transposed-ELL values of a csr matrix (host, f64)."""
-    degree = np.diff(A_csr.indptr)
-    n = A_csr.shape[0]
-    vals = np.zeros((k, n), dtype=np.float64)
-    slot = np.arange(A_csr.indices.shape[0]) - np.repeat(A_csr.indptr[:-1], degree)
-    row_ids = np.repeat(np.arange(n), degree)
-    vals[slot, row_ids] = A_csr.data
-    return vals
-
-
 def lambda_max_host(A_csr, diag_inv: np.ndarray, iters: int = 15,
                     seed: int = 0) -> float:
     """Spectral radius of D^-1 A by host power iteration."""
@@ -440,37 +415,25 @@ def lambda_max_host(A_csr, diag_inv: np.ndarray, iters: int = 15,
     return float(lam)
 
 
-def coarse_factor_host(A_coarse_csr, null_fix: bool) -> np.ndarray:
-    """Dense f64 Cholesky of the coarsest operator (host LAPACK).
+def coarse_inverse_host(A_coarse_csr, null_fix: bool):
+    """(Ainv, Ad) f64 numpy: the regularized dense coarsest operator ``Ad``,
+    for the refinement step in _coarse_solve, and its inverse from a dense
+    Cholesky factor (host LAPACK).
 
     ``null_fix`` adds sigma * (1 1^T)/n, which moves only the near-null
     constant eigenvalue of near-singular systems (the outer solve deflates
     that mode exactly); a tiny relative diagonal shift plays the role of
     the reference's LDLT robustness (min_quad_with_fixed_mg.cpp:31-36).
     """
+    import scipy.linalg
+
     Ad = np.asarray(A_coarse_csr.todense(), dtype=np.float64)
     nc = Ad.shape[0]
     diag_scale = float(np.mean(np.abs(np.diag(Ad))))
     Ad[np.diag_indices(nc)] += 1e-12 * diag_scale
     if null_fix:
         Ad += diag_scale / nc
-    return np.linalg.cholesky(Ad)
-
-
-def coarse_inverse_host(A_coarse_csr, null_fix: bool):
-    """(Ainv, Ad) f64 numpy: the inverse of the regularized coarse operator
-    (from its Cholesky factor) and the regularized dense operator itself,
-    for the refinement step in _coarse_solve."""
-    import scipy.linalg
-
-    cho = coarse_factor_host(A_coarse_csr, null_fix)
-    nc = cho.shape[0]
-    Ainv = scipy.linalg.cho_solve((cho, True), np.eye(nc))
-    Ad = np.asarray(A_coarse_csr.todense(), dtype=np.float64)
-    diag_scale = float(np.mean(np.abs(np.diag(Ad))))
-    Ad[np.diag_indices(nc)] += 1e-12 * diag_scale
-    if null_fix:
-        Ad += diag_scale / nc
+    Ainv = scipy.linalg.cho_solve((np.linalg.cholesky(Ad), True), np.eye(nc))
     return Ainv, Ad
 
 
@@ -482,9 +445,7 @@ def _layout_counts(plans, chain, transfers, U_csr) -> dict:
     slots = nnz = 0
     for plan, A in zip(plans, chain):
         nnz += A.nnz
-        # a plan's first pattern array is its slice_ptr; ELL stores K x N
-        slots += (max(int(np.diff(A.indptr).max(initial=1)), 1) * A.shape[0]
-                  if plan[0] == "ell" else int(plan[1][0][-1]))
+        slots += int(plan[1][0][-1])   # a plan's first array is its slice_ptr
     for t, Ucsr in zip(transfers, U_csr):
         nnz += 2 * Ucsr.nnz
         slots += (int(t.U.col.numel()) + int(t.UT.col.numel())
@@ -554,19 +515,13 @@ class MultigridSolveContext:
         t1 = time.perf_counter()
         chain = galerkin_chain_scipy(self.lhs_csr, self.U_csr)
         self.timing["setup_chain"] = (time.perf_counter() - t1) * 1000
-        t1 = time.perf_counter()
-        self._patterns = [_ell_pattern(A) for A in chain[:-1]]
-        self._ell_k = [p[0].shape[0] for p in self._patterns]
-        self.timing["setup_patterns"] = (time.perf_counter() - t1) * 1000
         self.timing["plan_build"] = (time.perf_counter() - t0) * 1000
 
         # --- slot layouts (pattern-only, reused across LHS values) --------
-        # Per-level work bottoms out in native sorts that release the GIL.
+        # Per-level work is numpy array passes, which release the GIL.
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=2) as pool:
-            self._plans = list(pool.map(
-                lambda p: self._plan_level(*p), self._patterns
-            ))
+            self._plans = list(pool.map(self._plan_level, chain[:-1]))
         self.timing["setup_shuffle_layout"] = (time.perf_counter() - t0) * 1000
         t1 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=2) as pool:
@@ -578,59 +533,35 @@ class MultigridSolveContext:
         self.timing.update(_layout_counts(self._plans, chain, self.transfers,
                                           self.U_csr))
 
-        # Map each layout's src (flattened (K, N) ELL position, slot * N +
-        # row) straight to csr data positions (indptr[row] + slot), so the
-        # per-solve value fill is one gather from A.data.  The padding
-        # sentinel K*N maps to an appended zero at nnz.
+        # each level's csr data position per stored entry (nnz = padding,
+        # an appended zero): the per-solve value fill is one gather
         t0 = time.perf_counter()
-        self._csr_src = []
-        for k2, plan in enumerate(self._plans):
-            if plan[0] == "ell":
-                self._csr_src.append(None)
-                continue
-            src = plan[2]
-            indptr = chain[k2].indptr
-            n2 = chain[k2].shape[0]
-            if self._ell_k[k2] * n2 < 2**31 and chain[k2].nnz < 2**31:
-                flat = src.ravel().astype(np.int32, copy=False)
-                pad = flat == np.int32(self._ell_k[k2] * n2)
-                slot, row = np.divmod(flat, np.int32(n2))
-                csr_pos = indptr.astype(np.int32)[row] + slot
-                csr_pos[pad] = np.int32(chain[k2].nnz)
-            else:
-                flat = src.astype(np.int64).ravel()
-                pad = flat == (self._ell_k[k2] * n2)
-                slot, row = np.divmod(flat, np.int64(n2))
-                csr_pos = indptr[row] + slot
-                csr_pos[pad] = chain[k2].nnz
-            self._csr_src.append(csr_pos.reshape(src.shape))
+        self._csr_src = [plan[2] for plan in self._plans]
         self.timing["setup_csr_src"] = (time.perf_counter() - t0) * 1000
         self._dev_pattern: dict = {}
 
         # --- values: fill layouts, spectral bounds, coarse inverse, upload
         self._reduce_and_upload(chain)
 
-    def _plan_level(self, idx, mask):
+    def _plan_level(self, A_csr):
         """Per-level sparse-layout choice: a tagged plan tuple ``(tag,
-        pattern arrays, src, extra)``, ``src`` mapping each stored entry to
-        its flattened ELL position (K*N = padding).
+        pattern arrays, pos, extra)`` from :func:`sparse.sliced_pattern`,
+        ``pos`` mapping each stored entry to its csr data position (nnz =
+        padding).
 
         Every level gets the SlicedEll layout (``"sliced"``, extra = threads
         per row), except that a level with >= ``diag_min_groups`` row groups
         of 128 gets the SlicedDiag layout derived from it (``"sdiag"``,
         extra = widest slice) where one apply then streams fewer bytes
-        (:func:`sparse.sliced_rule`).  Layouts storing beyond max(8 nnz,
-        2^24) entries fall back to transposed ELL (``("ell",)``).
+        (:func:`sparse.sliced_rule`).
         """
-        n = idx.shape[1]
-        slice_ptr, col, src = sliced_plan_arrays(idx, mask, n)
-        if int(slice_ptr[-1]) > max(8 * int(np.asarray(mask).sum()), 1 << 24):
-            return ("ell",)
-        tag, runs, extra = sliced_rule(slice_ptr, col, src != idx.size, (n, n),
+        slice_ptr, col, pos = sliced_pattern(A_csr)
+        tag, runs, extra = sliced_rule(slice_ptr, col, pos != A_csr.nnz,
+                                       A_csr.shape,
                                        numpy_dtype(self.dtype).itemsize,
                                        self.diag_min_groups)
         arrays = (slice_ptr,) + runs if tag == "sdiag" else (slice_ptr, col)
-        return (tag, arrays, src, extra)
+        return (tag, arrays, pos, extra)
 
     def _level_tensors(self, k, pattern, A):
         """Device tensors of level k's operator: its pattern arrays,
@@ -683,15 +614,7 @@ class MultigridSolveContext:
                     lam = lambda_max_host(A, diag_inv_np)
                 t3 = time.perf_counter()
                 plan = self._plans[k]
-                if plan[0] == "ell":
-                    idx, _mask = self._patterns[k]
-                    A_dev = EllMatrix(
-                        torch.from_numpy(idx.astype(np.int64)),
-                        torch.from_numpy(
-                            _ell_values(A, self._ell_k[k]).astype(npdt)),
-                        A.shape[1],
-                    ).to(self.device)
-                elif plan[0] == "sdiag":
+                if plan[0] == "sdiag":
                     ptr_t, base_t, delta_t, wp_t, wc_t, v_t = self._level_tensors(
                         k, plan[1], A)
                     A_dev = SlicedDiag(ptr_t, base_t, delta_t, v_t, wp_t, wc_t,
@@ -724,7 +647,7 @@ class MultigridSolveContext:
     def _analyze_lhs(self):
         """f64 row sums (= A @ 1), the deflation's gate and near-singularity
         detection, for the exact constant-mode deflation (see solve()) and
-        the coarse nullspace fix (see coarse_factor_host)."""
+        the coarse nullspace fix (see coarse_inverse_host)."""
         self.row_sums = np.asarray(
             self.lhs_csr.sum(axis=1), dtype=np.float64
         ).ravel()

@@ -21,8 +21,8 @@ dataclasses of torch tensors with a ``.to(device)``:
 * :class:`DiagEll` — the source block is an arithmetic run within tiles
   of ``tg`` groups (``start`` table; the JAX package's TPU layout, carried
   over by ``convert.py``); applied by ``ops/diag_spmv.py``;
-* :class:`EllMatrix` — transposed padded rows, the planner's fallback for
-  padding-pathological operators (plain torch gather);
+* :class:`EllMatrix` — transposed padded rows (the JAX package's layout,
+  carried over by ``convert.py``; no solve builds it; plain torch gather);
 * :class:`ShuffleTransfer` / :class:`Prolongation` — grid transfers.
 
 All SpMVs take x of shape (N,) or (N, d) in one call.
@@ -297,7 +297,25 @@ def _sliced_layout(indptr: np.ndarray, nrows: int):
     return slice_ptr, dest
 
 
-def _sliced_entries(A, dtype, size_cap: int | None):
+def sliced_pattern(A):
+    """The SlicedEll pattern of a canonical csr matrix (sorted, no
+    duplicates); every sliced layout of the port is built through it.
+
+    Returns ``(slice_ptr (n_slices + 1,) int64, col (E,) int32, pos
+    (E,))``: ``pos[e]`` is the csr data position entry ``e`` holds, and
+    ``nnz`` marks padding (column 0), so ``append(A.data, 0)[pos]`` are
+    the layout's values.  ``pos`` is int32 where ``nnz < 2**31``, else
+    int64."""
+    slice_ptr, dest = _sliced_layout(A.indptr, A.shape[0])
+    nnz = int(A.nnz)
+    col = np.zeros(int(slice_ptr[-1]), np.int32)
+    col[dest] = A.indices
+    pos = np.full(col.size, nnz, np.int32 if nnz < 2**31 else np.int64)
+    pos[dest] = np.arange(nnz, dtype=pos.dtype)
+    return slice_ptr, col, pos
+
+
+def _sliced_entries(A, dtype, size_cap: int | None = None):
     """(canonical csr A, slice_ptr, col, val, real) of A's SlicedEll
     layout, ``real`` marking the entries that hold a nonzero; None where
     the layout would store more than ``size_cap`` entries."""
@@ -305,24 +323,18 @@ def _sliced_entries(A, dtype, size_cap: int | None):
     if not A.has_canonical_format:
         A = A.copy()
         A.sum_duplicates()
-    slice_ptr, dest = _sliced_layout(A.indptr, A.shape[0])
-    entries = int(slice_ptr[-1])
-    if size_cap is not None and entries > size_cap:
+    slice_ptr, col, pos = sliced_pattern(A)
+    if size_cap is not None and col.size > size_cap:
         return None
-    col = np.zeros(entries, np.int32)
-    val = np.zeros(entries, numpy_dtype(dtype))
-    real = np.zeros(entries, bool)
-    col[dest] = A.indices
-    val[dest] = A.data
-    real[dest] = True
-    return A, slice_ptr, col, val, real
+    val = np.append(A.data, 0).astype(numpy_dtype(dtype), copy=False)[pos]
+    return A, slice_ptr, col, val, pos != A.nnz
 
 
 def sliced_from_scipy(A, dtype=torch.float32,
                       size_cap: int | None = None) -> SlicedEll | None:
     """Convert any scipy sparse matrix to SlicedEll (host tensors);
     duplicates are summed.  ``size_cap``: if the layout would store more
-    than this many entries, return None without materializing it."""
+    than this many entries, return None."""
     got = _sliced_entries(A, dtype, size_cap)
     if got is None:
         return None
@@ -435,21 +447,16 @@ def _sliced_diag(slice_ptr, runs, val, nrows, ncols, nnz) -> SlicedDiag:
 def sliced_diag_from_scipy(A, dtype=torch.float32) -> SlicedDiag:
     """Convert any scipy sparse matrix to SlicedDiag (host tensors);
     duplicates are summed."""
-    A, slice_ptr, col, val, real = _sliced_entries(A, dtype, None)
+    A, slice_ptr, col, val, real = _sliced_entries(A, dtype)
     runs = sliced_diag_arrays(slice_ptr, col, real, A.shape[1])
     return _sliced_diag(slice_ptr, runs, val, *A.shape, int(A.nnz))
 
 
-def sliced_layout_from_scipy(A, dtype=torch.float32, size_cap: int | None = None,
-                             min_groups: int = 0):
+def sliced_layout_from_scipy(A, dtype=torch.float32, min_groups: int = 0):
     """Any scipy sparse matrix as SlicedDiag or SlicedEll by
     :func:`sliced_rule` (SlicedDiag where it has at least ``min_groups``
-    row groups and streams fewer bytes per apply); None where the layout
-    would store more than ``size_cap`` entries."""
-    got = _sliced_entries(A, dtype, size_cap)
-    if got is None:
-        return None
-    A, slice_ptr, col, val, real = got
+    row groups and streams fewer bytes per apply)."""
+    A, slice_ptr, col, val, real = _sliced_entries(A, dtype)
     nr, nc = A.shape
     tag, runs, extra = sliced_rule(slice_ptr, col, real, A.shape,
                                    val.dtype.itemsize, min_groups)
@@ -457,41 +464,6 @@ def sliced_layout_from_scipy(A, dtype=torch.float32, size_cap: int | None = None
         return SlicedEll(_tensor(slice_ptr), _tensor(col), _tensor(val), nr, nc,
                          int(A.nnz), extra)
     return _sliced_diag(slice_ptr, runs, val, nr, nc, int(A.nnz))
-
-
-def sliced_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
-    """SlicedEll layout of a transposed-ELL pattern (host numpy).
-
-    ``idx (K, N)`` column indices, ``mask (K, N)`` real-vs-padding; a
-    row's entries keep their slot order (CSR column order for a pattern
-    from a sorted csr matrix).  Returns ``(slice_ptr (n_slices + 1,)
-    int64, col (E,) int32, src (E,))`` where ``src`` indexes the flattened
-    (K*N,) ELL values, with K*N meaning padding (route to an appended
-    zero), as in :func:`diag_plan_arrays`."""
-    idx = np.asarray(idx)
-    k, n = idx.shape
-    row, slot = np.nonzero(np.asarray(mask, dtype=bool).T)   # row-major
-    indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(row, minlength=n), out=indptr[1:])
-    slice_ptr, dest = _sliced_layout(indptr, n)
-    entries = int(slice_ptr[-1])
-    col = np.zeros(entries, np.int32)
-    col[dest] = idx[slot, row]
-    src_dtype = np.int32 if k * n < 2**31 else np.int64
-    src = np.full(entries, k * n, src_dtype)
-    src[dest] = slot.astype(np.int64) * n + row
-    return slice_ptr, col, src
-
-
-def sliced_diag_plan_arrays(idx: np.ndarray, mask: np.ndarray, ncols: int):
-    """SlicedDiag layout of a transposed-ELL pattern (host numpy): the
-    plan of :func:`sliced_plan_arrays` with its columns turned into runs by
-    :func:`sliced_diag_arrays`.  Returns ``(slice_ptr, base, delta,
-    wide_ptr, wide_col, src)``, ``src`` as in :func:`sliced_plan_arrays`
-    (K*N marks padding)."""
-    slice_ptr, col, src = sliced_plan_arrays(idx, mask, ncols)
-    real = src != np.asarray(idx).size
-    return (slice_ptr, *sliced_diag_arrays(slice_ptr, col, real, ncols), src)
 
 
 def _check_cols(A, x):

@@ -8,8 +8,7 @@
   no more (the JAX package runs whole 500-iteration chunks).
 * A matrix with one dense row pads only its own 32-row slice of the
   sliced operator (SlicedDiag there, with no wide slice: past the fourth
-  slot the dense row is its slice's one real lane); past the size cap CG
-  takes the transposed-ELL one.
+  slot the dense row is its slice's one real lane), and CG solves on it.
 * Without ``device``, CG runs on the card and raises where there is none.
 """
 
@@ -20,7 +19,7 @@ import scipy.sparse as sp
 import torch
 
 from gravo_mg_tpu.solver import direct as ref_direct
-from gravo_mg_tpu_torch import EllMatrix, MultigridSolver, SlicedDiag
+from gravo_mg_tpu_torch import MultigridSolver, SlicedDiag
 from gravo_mg_tpu_torch.solver import direct
 
 torch.set_num_threads(2)
@@ -70,7 +69,9 @@ def test_cg_honours_max_iter_exactly(sphere_mesh, max_iter, monkeypatch):
     assert timing["cg_residual"] > 1e-10
 
 
-def test_cg_dense_row_takes_ell_path(monkeypatch):
+def test_cg_dense_row_takes_ell_path():
+    """The padding case an ELL layout is meant for: CG's operator stays
+    sliced, its dense row widening only its own slice."""
     n = 1000
     main = np.full(n, 4.0)
     main[0] = 5.0
@@ -85,9 +86,6 @@ def test_cg_dense_row_takes_ell_path(monkeypatch):
     # the dense row widens its own slice only: 32 rows x n slots
     assert info["max_width"] == n
     assert info["entries"] == 32 * n + 32 * 4 * (info["slices"] - 1)
-    monkeypatch.setattr(direct, "PAD_FLOOR", 1 << 12)
-    monkeypatch.setattr(direct, "PAD_FACTOR", 4)
-    assert isinstance(direct.cg_operator(A), EllMatrix)
     b = np.random.default_rng(0).standard_normal(n)
     x = direct.cg_solve(A, b, tol=1e-5, device="cpu")
     assert np.linalg.norm(A @ x - b) <= 1.1e-5 * np.linalg.norm(b)

@@ -110,7 +110,6 @@ def test_plan_arrays_match_reference():
     rows, cols, vals = _rand_coo(6000, 6000, 40000, 60, 7, dup=False)
     A = sp.coo_matrix((vals, (rows, cols)), shape=(6000, 6000))
     idx, mask = _ell_of(A)
-    _assert_same(mg._ell_pattern(A.tocsr()), (idx, mask))
     _assert_same(sparse.diag_plan_arrays(idx, mask, 6000),
                  ref_sparse.diag_plan_arrays(idx, mask, 6000))
 

@@ -8,7 +8,7 @@
   two layouts sum a row's entries in different orders.
 * Layout invariants: each nonzero placed once, padding weight 0 with an
   in-range column, ``w_s`` the slice's largest degree, CSR column order
-  within a row, ``src`` mapping back to the ELL pattern.
+  within a row; ``sliced_pattern`` maps each entry to its csr position.
 * The solve context: SlicedEll levels, transfers and mass matrix;
   ``update_lhs`` equals a fresh context.
 """
@@ -156,19 +156,22 @@ def test_sliced_layout_invariants(kind):
 
 
 @pytest.mark.parametrize("kind", ["banded", "empty_rows", "dense_row"])
-def test_sliced_plan_arrays_map_back_to_ell(kind):
+def test_sliced_pattern_maps_each_entry_to_its_csr_position(kind):
     A = _matrix(kind)            # square, as the planner's levels are
-    idx, mask = mg._ell_pattern(A)
-    k, n = idx.shape
-    ptr, col, src = sparse.sliced_plan_arrays(idx, mask, n)
+    ptr, col, pos = sparse.sliced_pattern(A)
     op = sparse.sliced_from_scipy(A, dtype=torch.float64)
     assert np.array_equal(ptr, op.slice_ptr.numpy())
     assert np.array_equal(col, op.col.numpy())
-    pad = src == k * n
-    assert np.array_equal(idx.reshape(-1)[src[~pad]], col[~pad])
-    assert mask.reshape(-1)[src[~pad]].all() and pad.sum() == col.size - A.nnz
-    vals = np.append(mg._ell_values(A, k).reshape(-1), 0.0)[src]
-    assert np.array_equal(vals, op.val.numpy())
+    assert np.array_equal(np.append(A.data, 0.0)[pos], op.val.numpy())
+    # each csr position once, in its own row; padding is nnz, column 0
+    assert pos.dtype == np.int32
+    real = pos != A.nnz
+    assert np.array_equal(np.sort(pos[real]), np.arange(A.nnz))
+    assert not col[~real].any() and (~real).sum() == col.size - A.nnz
+    rows = slmod.entry_rows(op.slice_ptr).numpy()[real]
+    assert np.array_equal(np.searchsorted(A.indptr, pos[real], side="right") - 1,
+                          rows)
+    assert np.array_equal(A.indices[pos[real]], col[real])
 
 
 @pytest.mark.parametrize("nrows,wmax,tpr", [

@@ -12,10 +12,14 @@
 * Layout invariants: every nonzero placed once, in CSR column order; the
   columns it rebuilds equal CSR's; padding has weight 0 and an in-range
   column; a slice is wide exactly when a slot's int8 deltas cannot hold
-  its real offsets or its padding; ``src`` maps back to the ELL pattern.
+  its real offsets or its padding; the runs of ``sliced_pattern`` are
+  ``sliced_diag_from_scipy``'s.
 * The planner: SlicedDiag for a torus finest level, SlicedEll for a
-  permuted one; ``update_lhs`` equals a fresh context.
+  permuted one; every level, a dense row's too, the layout of
+  ``sliced_layout_from_scipy``; ``update_lhs`` equals a fresh context.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -218,19 +222,15 @@ def test_sliced_diag_layout_invariants(kind):
 
 
 @pytest.mark.parametrize("kind", ["banded_30", "torus", "empty_rows"])
-def test_sliced_diag_plan_arrays_map_back_to_ell(kind):
+def test_sliced_pattern_gives_the_sliced_diag_runs(kind):
     A = _matrix(kind)                # square, as the planner's levels are
-    idx, mask = mg._ell_pattern(A)
-    k, n = idx.shape
-    ptr, base, delta, wide_ptr, wide_col, src = sparse.sliced_diag_plan_arrays(
-        idx, mask, n)
+    ptr, col, pos = sparse.sliced_pattern(A)
     op = sparse.sliced_diag_from_scipy(A, dtype=torch.float64)
-    for got, want in ((ptr, op.slice_ptr), (base, op.base), (delta, op.delta),
-                      (wide_ptr, op.wide_ptr), (wide_col, op.wide_col)):
+    runs = sparse.sliced_diag_arrays(ptr, col, pos != A.nnz, A.shape[1])
+    for got, want in ((ptr, op.slice_ptr), (runs[0], op.base), (runs[1], op.delta),
+                      (runs[2], op.wide_ptr), (runs[3], op.wide_col)):
         assert np.array_equal(got, want.numpy())
-    assert np.array_equal(src, sparse.sliced_plan_arrays(idx, mask, n)[2])
-    vals = np.append(mg._ell_values(A, k).reshape(-1), 0.0)[src]
-    assert np.array_equal(vals, op.val.numpy())
+    assert np.array_equal(np.append(A.data, 0.0)[pos], op.val.numpy())
 
 
 @pytest.mark.parametrize("kind,want", [("torus", sparse.SlicedDiag),
@@ -245,7 +245,6 @@ def test_byte_rule_picks_the_smaller_layout(kind, want):
     smaller = (sparse.sliced_diag_bytes(ptr, diag.wide_ptr.numpy(), 4)
                < sparse.sliced_bytes(ptr, 4))
     assert smaller == (want is sparse.SlicedDiag)
-    assert sparse.sliced_layout_from_scipy(A, size_cap=A.nnz - 1) is None
 
 
 def _torus_solver(permute):
@@ -275,18 +274,42 @@ def test_planner_picks_sliced_diag_for_a_torus_finest_level(permute, want):
     assert sdmod.launches == 0                    # CPU tensors: the plain version
 
 
-def test_planner_builds_the_plan_of_sliced_diag_plan_arrays():
-    """The planner's own composition (sliced plan, then the byte rule's
-    runs) gives the arrays of :func:`sparse.sliced_diag_plan_arrays`."""
+def _assert_same_layout(got, want):
+    assert type(got) is type(want)
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert torch.equal(a, b) if torch.is_tensor(b) else a == b, f.name
+
+
+def test_planner_builds_the_layout_of_sliced_layout_from_scipy():
+    """The planner's level-0 SlicedDiag is the one
+    :func:`sparse.sliced_layout_from_scipy` builds from the chain's level,
+    in every array and in its values."""
     solver, S, M = _torus_solver(False)
     ctx = solver._context((1e-6 * M + S).tocsr())
-    idx, mask = mg._ell_pattern(ctx.chain_csr[0])
-    tag, arrays, src, wmax = ctx._plan_level(idx, mask)
-    assert tag == "sdiag"
-    want = sparse.sliced_diag_plan_arrays(idx, mask, idx.shape[1])
-    for got, ref in zip(arrays + (src,), want):
-        assert np.array_equal(got, ref)
-    assert wmax == sparse.widest_slice(want[0])
+    assert isinstance(ctx.levels[0].A, sparse.SlicedDiag)
+    _assert_same_layout(ctx.levels[0].A, sparse.sliced_layout_from_scipy(
+        ctx.chain_csr[0], dtype=ctx.dtype, min_groups=32))
+
+
+def test_planner_lays_out_a_dense_row_sliced():
+    """A level with a dense row (and column) stays SlicedEll or SlicedDiag
+    on every level, each equal to :func:`sparse.sliced_layout_from_scipy`
+    of its chain level."""
+    solver, S, M = _torus_solver(False)
+    n = S.shape[0]
+    # W^T W couples vertex 0 to every vertex: a dense row and column, SPD
+    W = sp.csr_matrix((np.full(2 * (n - 1), 1e-2),
+                       (np.repeat(np.arange(n - 1), 2),
+                        np.stack([np.zeros(n - 1, int), np.arange(1, n)], 1).ravel())),
+                      shape=(n - 1, n))
+    lhs = (1e-6 * M + S + W.T @ W).tocsr()
+    ctx = solver._context(lhs)
+    assert np.diff(ctx.chain_csr[0].indptr).max() == n
+    for k, level in enumerate(ctx.levels):
+        assert type(level.A) in (sparse.SlicedEll, sparse.SlicedDiag)
+        _assert_same_layout(level.A, sparse.sliced_layout_from_scipy(
+            ctx.chain_csr[k], dtype=ctx.dtype, min_groups=ctx.diag_min_groups))
 
 
 def test_update_lhs_on_a_sliced_diag_level_equals_fresh_context():
