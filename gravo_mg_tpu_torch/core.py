@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import ctypes
 import os
-from concurrent.futures import ThreadPoolExecutor
+import weakref
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import List, Optional
 
 import numpy as np
@@ -38,6 +39,11 @@ _memcmp.restype = ctypes.c_int
 # compare is cut into up to _COMPARE_PARTS parts of at least _PART bytes,
 # run at once by the facade's compare threads (ctypes drops the GIL).
 _COMPARE_PARTS = min(8, os.cpu_count() or 1)
+# A call that runs ahead (``MultigridSolver.solve``) compares in at most
+# four parts, and half the cores, while its own thread uploads, launches
+# and waits: on an 8-core host of an H100, eight compare threads slowed
+# that thread's upload ~1.9x, four ~1.3x, for as fast a call.
+_AHEAD_PARTS = max(1, min(4, (os.cpu_count() or 1) // 2))
 _PART = 1 << 20
 
 
@@ -45,19 +51,20 @@ def _alike(a: np.ndarray, b: np.ndarray) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype
 
 
-def _same_bytes(a: np.ndarray, own: np.ndarray, pool) -> bool:
+def _same_bytes(a: np.ndarray, own: np.ndarray, pool, parts=None) -> bool:
     """Whether ``a`` holds the bytes of ``own``, a contiguous array of the
     same shape and dtype: ``memcmp`` at memory speed, with no temporary,
-    its parts over ``pool``'s threads and the caller's."""
+    in up to ``parts`` (default ``_COMPARE_PARTS``) parts over ``pool``'s
+    threads and the caller's."""
     a = np.ascontiguousarray(a)
     n, pa, po = a.nbytes, a.ctypes.data, own.ctypes.data
-    k = max(1, min(_COMPARE_PARTS, n // _PART))
+    k = max(1, min(parts or _COMPARE_PARTS, n // _PART))
     step = -(-n // k) or 1
-    parts = [pool.submit(_memcmp, pa + o, po + o, min(step, n - o))
-             for o in range(step, n, step)]
+    rest = [pool.submit(_memcmp, pa + o, po + o, min(step, n - o))
+            for o in range(step, n, step)]
     same = n == 0 or _memcmp(pa, po, min(step, n)) == 0
     # wait for every part: ``a`` may be a copy that the threads still read
-    return not any([f.result() for f in parts]) and same
+    return not any([f.result() for f in rest]) and same
 
 
 class _OwnedLHS:
@@ -81,15 +88,26 @@ class _OwnedLHS:
                 and _alike(lhs.indptr, self.indptr)
                 and _alike(lhs.indices, self.indices))
 
-    def same_pattern(self, lhs, pool) -> bool:
-        return (_same_bytes(lhs.indptr, self.indptr, pool)
-                and _same_bytes(lhs.indices, self.indices, pool))
+    def same_pattern(self, lhs, pool, parts=None) -> bool:
+        return (_same_bytes(lhs.indptr, self.indptr, pool, parts)
+                and _same_bytes(lhs.indices, self.indices, pool, parts))
 
-    def same_values(self, lhs, pool) -> bool:
+    def same_values(self, lhs, pool, parts=None) -> bool:
         """Byte equality: ``-0.0`` against ``0.0`` reads as a change,
         which costs a refresh and never reuses a stale system."""
         return (_alike(lhs.data, self.data)
-                and _same_bytes(lhs.data, self.data, pool))
+                and _same_bytes(lhs.data, self.data, pool, parts))
+
+    def confirm(self, lhs, pool, timing) -> tuple:
+        """``(same pattern, same values)`` in ``_AHEAD_PARTS`` parts, each
+        compare timed into ``timing``; the values are compared only under
+        the same pattern."""
+        with span(timing, "facade_pattern_key", host_only=True):
+            pattern = self.same_pattern(lhs, pool, _AHEAD_PARTS)
+        if not pattern:
+            return False, False
+        with span(timing, "facade_value_compare", host_only=True):
+            return True, self.same_values(lhs, pool, _AHEAD_PARTS)
 
     def take_values(self, lhs):
         """Copy the caller's values into the owned buffer (a new one only
@@ -186,10 +204,16 @@ class MultigridSolver:
         self._hierarchy_ours = self.hierarchy
         self._hierarchy_sig21: Optional[HierarchyData] = None
         self._contexts: dict = {}
+        # the LHS object of the previous solve, where that call found its
+        # context by the pattern with equal values (see ``solve``); weak,
+        # so it never keeps the caller's matrix alive
+        self._repeat: Optional[weakref.ref] = None
         # threads that compare a call's LHS with the contexts' own copies,
-        # started at the first compare that is split
+        # started at the first compare that is split: a run-ahead call's
+        # compares take one, their parts others
         self._compare_pool = ThreadPoolExecutor(
-            _COMPARE_PARTS - 1 or 1, thread_name_prefix="facade-compare")
+            max(_COMPARE_PARTS - 1, _AHEAD_PARTS),
+            thread_name_prefix="facade-compare")
         self._cg_units: dict = {}     # cg_solve's captured unit (direct.py)
         self._active_hierarchy = Hierarchy.OURS
         self.convergence: List[tuple] = []
@@ -235,6 +259,7 @@ class MultigridSolver:
         for ctx in self._contexts.values():
             ctx.release_graphs()
         self._contexts.clear()
+        self._repeat = None
 
     def set_prolongation_matrices(self, U_list):
         """Inject external prolongation matrices (scipy sparse), replacing
@@ -278,19 +303,25 @@ class MultigridSolver:
     # keeps both contexts' layouts instead of replanning on every swap.
     _CONTEXT_LRU = 4
 
-    def _context(self, lhs, timing=None) -> MultigridSolveContext:
+    def _context(self, lhs, timing=None, tried=None) -> MultigridSolveContext:
         """The context of ``lhs``'s pattern, its values refreshed where they
         changed.  The lookup (the prefilter and the byte compares of the
         pattern, newest context first) and the value compare are timed
         into ``timing``, beside ``facade_patterns_compared``: the stored
-        patterns this call compared byte for byte."""
+        patterns this call compared byte for byte.  ``tried`` is a key
+        whose pattern this call has compared already and found to differ:
+        it is counted, and not compared again.  Where ``lhs`` found its
+        context by the pattern with equal values, the next solve with the
+        same ``lhs`` object may run ahead (``solve``)."""
+        caller = lhs
         with span(timing, "facade_pattern_key", host_only=True):
             lhs = lhs.tocsr()
             key, compared = None, 0
             for cand in reversed(self._contexts):
                 if cand.admits(self.hierarchy, lhs):
                     compared += 1
-                    if cand.same_pattern(lhs, self._compare_pool):
+                    if (cand is not tried
+                            and cand.same_pattern(lhs, self._compare_pool)):
                         key = cand
                         break
             # re-inserted below, which refreshes the LRU order
@@ -303,6 +334,7 @@ class MultigridSolver:
             post_iters=self.post_iters,
             smoother=int(self.smoother),
         )
+        hit = False
         if ctx is None:
             ctx = MultigridSolveContext(
                 self.hierarchy, lhs, self.mass, cfg, dtype=self.dtype,
@@ -314,12 +346,44 @@ class MultigridSolver:
         else:
             # Same pattern: value-only update unless the values match too.
             with span(timing, "facade_value_compare", host_only=True):
-                same = key.same_values(lhs, self._compare_pool)
-            if not same:
-                ctx.update_lhs(lhs)
-                key.take_values(lhs)
+                hit = key.same_values(lhs, self._compare_pool)
+            if not hit:
+                self._refresh(ctx, key, lhs)
         self._contexts[key] = ctx
+        self._repeat = weakref.ref(caller) if hit else None
         return ctx
+
+    def _refresh(self, ctx, key, lhs):
+        """Take ``lhs``'s new values, same pattern, into ``ctx`` and ``key``."""
+        ctx.update_lhs(lhs)
+        key.take_values(lhs)
+        self._repeat = None
+
+    def _solve_ahead(self, key, ctx, lhs, rhs, x0, solve_kw, timing):
+        """Solve on ``key``'s context ``ctx`` while the compare pool
+        confirms that ``lhs`` (CSR) still has its pattern and values.
+        Returns the answer, solved again after a value refresh where the
+        values differed, or None where the pattern differed."""
+        ahead: dict = {}
+        compares = self._compare_pool.submit(
+            key.confirm, lhs, self._compare_pool, ahead)
+        try:
+            out = ctx.solve(rhs, x0, **solve_kw)
+        finally:
+            # the pool reads the caller's arrays and the owned copies: none
+            # is written, and nothing returns, before it is done
+            with span(timing, "facade_compare_wait", host_only=True):
+                wait([compares])
+        same_pattern, same_values = compares.result()
+        timing.update(ahead, facade_ran_ahead=1.0,
+                      facade_discarded=float(not same_values))
+        if not same_pattern:
+            return None
+        timing["facade_patterns_compared"] = 1
+        if not same_values:
+            self._refresh(ctx, key, lhs)
+            out = ctx.solve(rhs, x0, **solve_kw)
+        return out
 
     def solve(self, lhs, rhs, x0=None, mode: str = "traced"):
         """Multigrid-solve ``lhs @ x = rhs`` to the configured tolerance.
@@ -361,18 +425,57 @@ class MultigridSolver:
         a recording ``torch.profiler``'s host timeline, beside ranges with
         no key: ``update_galerkin``, ``update_spectral`` and
         ``update_coarse_factor`` (the host steps of a value refresh).
+
+        A fused call runs ahead where ``lhs`` is the object the previous
+        call received (held by a weak reference), that call found its
+        context by the pattern with equal values, and the newest context
+        admits ``lhs`` (hierarchy, shape, index lengths and dtypes): it
+        solves on that context while the compare pool compares the pattern
+        and the values, and keeps the answer only once both are equal.
+        Where the values differ it refreshes them and solves again; where
+        the pattern differs it looks up, refreshes or builds as any other
+        call, without comparing that context again.  A caller that edits
+        its matrix in place between calls therefore pays one discarded
+        solve on the first call after each edit, the only case that loses;
+        one that alternates matrices, or builds a new one each call, never
+        runs ahead.  A traced call compares first: its thread launches
+        every kernel from Python, and compare threads beside it slowed that
+        thread by about what they saved (262k vertices, 3 columns, on an
+        H100's host).  On a call that ran ahead ``facade_pattern_key`` and
+        ``facade_value_compare`` are timed on the pool's thread that ran
+        them (no range on the caller's profiler timeline), and
+        ``facade_compare_wait`` is the caller's wait for them after its
+        solve returned (a range; present only on calls that ran ahead).
+        Every call sets ``facade_ran_ahead`` (1.0 where it solved before its
+        compares confirmed the context, else 0.0) and ``facade_discarded``
+        (1.0 where that answer was thrown away).  ``solver_total``,
+        ``solve_upload``, ``cycles`` and ``solve_copy_back`` are those of
+        the answer returned.
         """
         if not sp.issparse(lhs):
             lhs = sp.csr_matrix(lhs)
         rhs = np.asarray(rhs)
         squeeze = rhs.ndim == 1
-        facade: dict = {}
-        ctx = self._context(lhs, facade)
-        x, iters, res, conv = ctx.solve(
-            rhs, x0,
-            tol=self.tolerance, criteria=self.stopping_criteria,
-            max_iter=self.max_iter, mode=mode,
-        )
+        solve_kw = dict(tol=self.tolerance, criteria=self.stopping_criteria,
+                        max_iter=self.max_iter, mode=mode)
+        facade: dict = {"facade_ran_ahead": 0.0, "facade_discarded": 0.0}
+        out = tried = None
+        if (mode == "fused" and self._repeat is not None
+                and self._repeat() is lhs and self._contexts):
+            key, csr = next(reversed(self._contexts)), lhs.tocsr()
+            if key.admits(self.hierarchy, csr):
+                ctx = self._contexts[key]
+                out = self._solve_ahead(key, ctx, csr, rhs, x0, solve_kw,
+                                        facade)
+                tried = key
+        if out is None:
+            found: dict = {}
+            ctx = self._context(lhs, found, tried)
+            # a discarded run-ahead's pattern compare adds to the lookup's
+            for name, value in found.items():
+                facade[name] = facade.get(name, 0) + value
+            out = ctx.solve(rhs, x0, **solve_kw)
+        x, iters, res, conv = out
         self.convergence = conv
         self.solver_timing = {**ctx.timing, **facade}
         if self.verbose:

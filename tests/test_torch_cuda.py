@@ -953,6 +953,28 @@ def test_fused_graph_stops_as_traced(cuda, fused_torus):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3])
+def test_fused_repeat_runs_ahead_bitwise(cuda, fused_torus, d):
+    """A warm fused repeat with the same LHS object solves while the pool
+    compares: one launch and one host wait, and the answer bit for bit
+    the call's before it, which compared first."""
+    V, S, M, neigh, noise = fused_torus
+    solver = _fused_solver(V, M, neigh, torch.float32)
+    lhs = (1e-6 * M + S).tocsr()
+    rhs = M @ (noise[:, 0] if d == 1 else noise)
+    solver.solve(lhs, rhs, mode="fused")                 # builds, captures
+    x = solver.solve(lhs, rhs, mode="fused")             # compares, replays
+    assert solver.solver_timing["facade_ran_ahead"] == 0.0
+    for _ in range(2):
+        y = solver.solve(lhs, rhs, mode="fused")
+        t = solver.solver_timing
+        assert t["facade_ran_ahead"] == 1.0 and t["facade_discarded"] == 0.0
+        assert t["graph_launches"] == 1 and t["host_reads"] == 1
+        assert t["facade_compare_wait"] >= 0
+        assert np.array_equal(y, x)
+
+
+@pytest.mark.cuda
 def test_fused_graph_recaptured_after_update_lhs(cuda, fused_torus):
     V, S, M, neigh, noise = fused_torus
     solver = _fused_solver(V, M, neigh, torch.float32)
