@@ -2,7 +2,8 @@
 program's place, in the precision below the one its configuration states
 (the configuration's ``control`` entry: bfloat16 for float32, float32 for
 float64).  Its check has to come out not correct.  The benchmark's own runs
-never run it.
+never run it.  Each traffic kind (``kinds/<kind>.py``) builds its own
+stand-in for the program through :class:`Control`.
 
     python3 benchmark/control.py --workload <cell> --seeds 11,12,13 --seconds 3
 
@@ -22,26 +23,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 class Control:
-    """The reference as the system under test, in ``dtype``."""
+    """The reference as the system under test, in ``dtype``: a kind builds
+    it through ``build(program, control, *args)``, which calls the kind's
+    ``control(side, *args)`` (``loops.Program`` calls ``program``)."""
 
     def __init__(self, device, dtype: str):
         self.device = device
         self.dtype = getattr(torch, dtype)
         self.np_dtype = {"float32": np.float32, "float64": np.float64}.get(dtype)
 
-    def solver(self, cfg, inp):
-        from benchmark.reference.solver import ReferenceSolver
-
-        return ReferenceSolver(inp.M, self.dtype, self.device,
-                               tolerance=cfg["solver"]["tolerance"])
-
-    def flow(self, cfg, V_in, F):
-        from benchmark.reference.solver import ReferenceFlow
-
-        if self.np_dtype is None:
-            raise ValueError(f"no host dtype for {self.dtype}")
-        return ReferenceFlow(V_in, F, cfg["tau"], self.dtype, self.np_dtype,
-                             self.device, cfg["solver"]["tolerance"])
+    def build(self, program, control, *args):
+        return control(self, *args)
 
 
 def run_control(cell: str, seeds, seconds: float, device: str, root=ROOT,

@@ -2,10 +2,10 @@
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``: its
 configuration is the file that the ``configs`` entry of the same name
-points at, its traffic is ``traffic/<traffic>.json`` beside this file, and
-each metric it reports is read by ``metrics/<name>.py``.  Adding any of
-these is adding a file; nothing here names a cell, a configuration or a
-metric.
+points at, its traffic is ``traffic/<traffic>.json`` beside this file, the
+traffic's ``kind`` is ``kinds/<kind>.py``, and each metric it reports is
+read by ``metrics/<name>.py``.  Adding any of these is adding a file;
+nothing here names a cell, a configuration, a kind or a metric.
 """
 
 from __future__ import annotations
@@ -77,13 +77,31 @@ def cell_metrics(spec: dict, cell: str, trace: bool) -> list:
                 else m["moves"] in names)]
 
 
-def load_reader(name: str, bench_dir=BENCH_DIR):
-    path = pathlib.Path(bench_dir) / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark.metrics." + name.replace(".", "_"), path)
+def _load_file(path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(name: str, bench_dir=BENCH_DIR):
+    path = pathlib.Path(bench_dir) / "metrics" / f"{name}.py"
+    return _load_file(path, "benchmark.metrics." + name.replace(".", "_")).read
+
+
+def load_kind(name: str, bench_dir=BENCH_DIR):
+    """The traffic kind ``kinds/<name>.py``: its ``Cell`` (built as
+    ``Cell(system, cfg, traffic, seed, log)``; ``span``, ``first_timing``,
+    ``facade``, ``call(i, profiled) -> (Call, answer)``, ``referee()``, and
+    optionally ``operators() -> loops.Operators``), and its ``FAMILY``, the
+    family of metrics its calls feed (``Run.kind``)."""
+    kinds = pathlib.Path(bench_dir) / "kinds"
+    path = kinds / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        found = ", ".join(sorted(p.stem for p in kinds.glob("*.py"))) or "none"
+        raise ValueError(f"unknown traffic kind {name!r}: no {name}.py in "
+                         f"{kinds}; the kinds there: {found}")
+    return _load_file(path, "benchmark.kinds." + name)
 
 
 # ---- one run -----------------------------------------------------------------
@@ -132,14 +150,16 @@ def _device(device: str, count: int) -> dict:
             "memory_peak_bytes": 0}
 
 
-def _yardstick(run: Run, cell, U, cfg, traffic, device_kind) -> None:
-    """The traced run's format-neutral bytes per cycle and per solve."""
-    if run.kind != "solve" or U is None:
+def _yardstick(run: Run, ops, cfg, device_kind) -> None:
+    """The traced run's format-neutral bytes per cycle and per solve, from
+    the operators the cell gives (none from a cell that gives none)."""
+    if ops is None or any(a is None for a in (ops.lhs, ops.prolongations,
+                                                 ops.mass)):
         return
     s = cfg["solver"]
-    chain, U = roofline.galerkin_operators(cell.lhs, U)
+    chain, U = roofline.galerkin_operators(ops.lhs, ops.prolongations)
     run.bytes_per_cycle, run.bytes_per_solve = roofline.cycle_bytes(
-        chain, U, cell.M, int(traffic["columns"]), loops.ITEMSIZE[s["dtype"]],
+        chain, U, ops.mass, ops.columns, loops.ITEMSIZE[s["dtype"]],
         s["pre_iters"], s["post_iters"], s["cycle_type"])
     run.hbm_bytes_per_s = roofline.hbm_bytes_per_s(device_kind)
 
@@ -157,14 +177,16 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     traffic = load_traffic(entry["traffic"], bench_dir)
     system = loops.Program(device) if system is None else system
     kind = traffic["kind"]
-    cell = loops.KINDS[kind](system, cfg, traffic, seed, log)
+    module = load_kind(kind, bench_dir)
+    cell = module.Cell(system, cfg, traffic, seed, log)
     reservoir = loops.Reservoir(traffic["check_sample"],
                                   np.random.default_rng([seed, 1]))
     loop = loops.Loop(cell.call, reservoir, cell.span)
-    sessions, U = [], None
+    sessions, ops = [], None
     if trace:
         s = cfg["solver"]
-        U = getattr(cell.facade, "prolongation_matrices", None)
+        ops = cell.operators() if hasattr(cell, "operators") else None
+        U = None if ops is None else ops.prolongations
         applies = None if U is None else roofline.cycle_applies(
             len(U), s["pre_iters"], s["post_iters"])
         sessions = _profile(loop, int(traffic["profile_calls"]), cell.span,
@@ -179,12 +201,13 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     log(f"window: {len(walls)} calls in {t1 - t0:.3f} s; ms min {walls[0]:.2f} "
         f"median {walls[len(walls) // 2]:.2f} max {walls[-1]:.2f}")
     dev = _device(device, entry["chips"])
-    run = Run(kind=kind, setup_s=setup_s, window_s=t1 - t0, calls=loop.calls,
+    run = Run(kind=module.FAMILY, setup_s=setup_s, window_s=t1 - t0,
+              calls=loop.calls,
               hierarchy_timing=dict(getattr(cell.facade, "hierarchy_timing", {})),
               context_timing=cell.first_timing or {}, profile=profile,
               traced=[c for c, _, whole in sessions if whole])
     if trace:
-        _yardstick(run, cell, U, cfg, traffic, dev["kind"])
+        _yardstick(run, ops, cfg, dev["kind"])
     referee = cell.referee()
     del cell, loop       # the program's state, before the reference runs
     gc.collect()

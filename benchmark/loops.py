@@ -1,24 +1,22 @@
-"""The general traffic generator: each traffic kind's set-up, its closed loop
-of calls, and the answers it keeps for the check.
+"""What the traffic kinds share: the side that builds the system under
+test, the closed loop of calls, the reservoir of kept answers and the
+right-hand-side pool.
 
 A traffic file (``traffic/<name>.json``) names its ``kind`` and gives its
-parameters; the kinds are ``solve`` (``MultigridSolver.solve`` on one
-system, a new right-hand side each call) and ``flow``
-(``ConformalFlow.step`` in sessions that restart from the same positions).
-One caller waits for each call before it makes the next.
+parameters; each kind is a file ``kinds/<kind>.py`` that the harness finds
+by that name (``solve``: ``MultigridSolver.solve`` on one system, a new
+right-hand side each call; ``flow``: ``ConformalFlow.step`` in sessions
+that restart from the same positions).  One caller waits for each call
+before it makes the next.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
-
-from .record import Call
-from .reference import inputs
-from .reference.check import FlowReference, judge_flow, judge_solves
-from .reference.mesh import system_matrix
 
 ITEMSIZE = {"float32": 4, "float64": 8}
 # the configuration's ``hierarchy`` options, MultigridSolver's arguments
@@ -72,34 +70,32 @@ def neighbors(cfg: dict, inp):
 
 
 class Program:
-    """The system under test: the port's facade and its flow."""
+    """The system under test.  A kind builds what its cell drives through
+    its side: ``build(program, control, *args)`` calls the kind's
+    ``program(side, *args)``, the port's object (the control's side,
+    ``control.Control``, calls ``control`` instead).  A cell hands both
+    builders and the side picks one, so the cell makes the same call on
+    either side and never asks which it runs on."""
 
     def __init__(self, device):
         self.device = device
 
-    def _dtype(self, cfg):
-        import torch
+    def build(self, program, control, *args):
+        return program(self, *args)
 
-        return getattr(torch, cfg["solver"]["dtype"])
 
-    def solver(self, cfg, inp):
-        from gravo_mg_tpu_torch import MultigridSolver
+@dataclasses.dataclass
+class Operators:
+    """What a cell's sparse applies work on: the system, the hierarchy's
+    prolongation matrices from the finest level down, the criterion's mass
+    and a call's columns.  The traced run counts a call's applies from the
+    prolongations, and its roofline bytes from all of them; a None leaves
+    that out."""
 
-        return MultigridSolver(inp.V, neighbors(cfg, inp), inp.M,
-                               dtype=self._dtype(cfg), device=self.device,
-                               **solver_kwargs(cfg))
-
-    def flow(self, cfg, V_in, F):
-        from gravo_mg_tpu_torch import MultigridSolver
-        from gravo_mg_tpu_torch.models.problems import ConformalFlow
-
-        dtype, kw = self._dtype(cfg), solver_kwargs(cfg)
-
-        def factory(V0, neigh, M):
-            return MultigridSolver(V0, neigh, M, dtype=dtype,
-                                   device=self.device, **kw)
-
-        return ConformalFlow(V_in, F, tau=cfg["tau"], solver_factory=factory)
+    lhs: object
+    prolongations: object
+    mass: object
+    columns: int
 
 
 def dispatched(solver) -> int:
@@ -128,7 +124,10 @@ class Reservoir:
                 self.items[j] = item
 
 
-def _rhs_pool(traffic, inp, rng):
+def rhs_pool(traffic, inp, rng):
+    """The traffic's seeded pool of ``pool`` right-hand sides: ``mass_randn``
+    (M @ a normal n x ``columns`` block) or ``mass_positions_jitter``
+    (M @ (V + ``jitter`` h · normal)); a one-column entry as a flat vector."""
     V, M = inp.V, inp.M
     n, size = V.shape[0], int(traffic["pool"])
     if traffic["rhs"] == "mass_randn":
@@ -167,115 +166,3 @@ class Loop:
             if (count is not None and i >= count) or (
                     end is not None and time.perf_counter() >= end):
                 return t0, time.perf_counter()
-
-
-class SolveCell:
-    """``MultigridSolver.solve(lhs, rhs, mode=...)`` on one system."""
-
-    span = "facade.solve"
-
-    def __init__(self, system, cfg, traffic, seed, log):
-        rng = np.random.default_rng(seed)
-        inp = inputs.make(cfg["mesh"])
-        self.M = inp.M
-        self.lhs = system_matrix(cfg, inp.S, self.M)
-        self.pool = _rhs_pool(traffic, inp, rng)
-        log(f"inputs: n={inp.V.shape[0]} nnz={self.lhs.nnz} pool={len(self.pool)}")
-        self.order_rng = np.random.default_rng([seed, 2])
-        self.idx = 0
-        self.mode = traffic["mode"]
-        self.solver = system.solver(cfg, inp)
-        log("solver built")
-        self.first_timing = None
-        for i in range(int(traffic["warmup_calls"])):
-            self.solver.solve(self.lhs, self.pool[i % len(self.pool)],
-                              mode=self.mode)
-            if self.first_timing is None:
-                self.first_timing = dict(self.solver.solver_timing)
-        log("warmed up")
-
-    def call(self, i, profiled):
-        # a seeded order in which no call repeats the previous one's vector
-        self.idx = (self.idx + int(self.order_rng.integers(1, len(self.pool)))) \
-            % len(self.pool)
-        rhs = self.pool[self.idx]
-        t0 = time.perf_counter()
-        x = self.solver.solve(self.lhs, rhs, mode=self.mode)
-        wall = (time.perf_counter() - t0) * 1000
-        timing = self.solver.solver_timing
-        return (Call(wall, timing, dispatched(self.solver), profiled),
-                (rhs, x, timing.get("residue")))
-
-    @property
-    def facade(self):
-        return self.solver
-
-    def referee(self):
-        """The check of this cell's answers, from its inputs alone."""
-        lhs, M = self.lhs, self.M
-        return lambda samples, limits: judge_solves(samples, lhs, M, limits)
-
-
-class FlowCell:
-    """``ConformalFlow.step()`` in sessions of ``session_steps`` steps, each
-    session from the same starting positions, on one solver and hierarchy."""
-
-    span = "flow.step"
-
-    def __init__(self, system, cfg, traffic, seed, log):
-        rng = np.random.default_rng(seed)
-        inp = inputs.make(cfg["mesh"])
-        if inp.F is None:
-            raise ValueError(
-                f"the flow kind needs a mesh with faces; {cfg['mesh']['kind']!r} "
-                "has none (the flow's reference is built on faces)")
-        V, self.F = inp.V, inp.F
-        h = inp.h * float(traffic["start_jitter"])
-        self.V_in = V + h * rng.standard_normal(V.shape)
-        self.tau, self.tol = cfg["tau"], cfg["solver"]["tolerance"]
-        self.session = int(traffic["session_steps"])
-        self.flow = system.flow(cfg, self.V_in, self.F)
-        self.V0 = self.flow.V
-        log(f"inputs: n={V.shape[0]}; flow built")
-        solver = self.flow.solver
-        inner = solver.solve
-        self.answers: list = []
-
-        def recording_solve(*args, **kwargs):
-            x = inner(*args, **kwargs)
-            self.answers.append((x, solver.solver_timing.get("residue")))
-            return x
-
-        solver.solve = recording_solve
-        self.first_timing = None
-        for _ in range(int(traffic["warmup_steps"])):
-            self.flow.step(tol=self.tol)
-            if self.first_timing is None:
-                self.first_timing = dict(solver.solver_timing)
-        self.prev = None
-        log("warmed up")
-
-    def call(self, i, profiled):
-        if i % self.session == 0:
-            self.flow.V, self.prev = self.V0, None
-        self.answers.clear()
-        t0 = time.perf_counter()
-        out = self.flow.step(tol=self.tol)
-        wall = (time.perf_counter() - t0) * 1000
-        x, claimed = self.answers[-1] if self.answers else (None, None)
-        answer = (self.prev, x, claimed, out)
-        self.prev = out
-        solver = self.flow.solver
-        return Call(wall, solver.solver_timing, dispatched(solver), profiled), answer
-
-    @property
-    def facade(self):
-        return self.flow.solver
-
-    def referee(self):
-        """The check of this cell's answers, from its inputs alone."""
-        ref = FlowReference(self.V_in, self.F, self.tau)
-        return lambda samples, limits: judge_flow(samples, ref, limits)
-
-
-KINDS = {"solve": SolveCell, "flow": FlowCell}

@@ -24,7 +24,7 @@ class Call:
 class Run:
     """A run's record: the window's calls and the set-up's spans."""
 
-    kind: str                          # the traffic's kind: "solve" or "flow"
+    kind: str                          # the kind's FAMILY: "solve" or "flow"
     setup_s: float                     # process start to window start
     window_s: float                    # window start to the last call's end
     calls: list                        # [Call]

@@ -9,8 +9,8 @@ from benchmark.control import run_control
 from benchmark.tests.tiny import tiny_root
 
 
-@pytest.mark.parametrize("cell", ["poisson1m.fused", "smooth262k.rhs3",
-                                  "smooth262k.flow"])
+@pytest.mark.parametrize("cell", ["poisson1m.fused", "poisson1m.fused3",
+                                  "smooth262k.rhs3", "smooth262k.flow"])
 def test_the_control_is_not_correct(tmp_path, cell):
     root, bench = tiny_root(tmp_path)
     for line in run_control(cell, [11, 2**31 + 12], 0.2, "cpu", root=root,

@@ -28,30 +28,29 @@ def _break_solve(solver, fault):
 
 
 class Broken(loops.Program):
+    """The program with ``fault`` planted in whatever a kind builds."""
+
     def __init__(self, fault):
         super().__init__("cpu")
         self.fault = fault
 
-    def solver(self, cfg, inp):
-        solver = super().solver(cfg, inp)
-        _break_solve(solver, self.fault)
-        return solver
-
-    def flow(self, cfg, V_in, F):
-        flow = super().flow(cfg, V_in, F)
-        if self.fault == "unchanged":    # a step that returns its state unchanged
-            flow.step = lambda tol=1e-4: flow.V
+    def build(self, program, control, *args):
+        built = super().build(program, control, *args)
+        if not hasattr(built, "step"):
+            _break_solve(built, self.fault)
+        elif self.fault == "unchanged":  # a step that returns its state unchanged
+            built.step = lambda tol=1e-4: built.V
         elif self.fault == "altered_positions":
-            step = flow.step
+            step = built.step
 
             def altered(tol=1e-4):
-                flow.V = step(tol=tol) * (1 + 1e-6)
-                return flow.V
+                built.V = step(tol=tol) * (1 + 1e-6)
+                return built.V
 
-            flow.step = altered
+            built.step = altered
         else:
-            _break_solve(flow.solver, self.fault)
-        return flow
+            _break_solve(built.solver, self.fault)
+        return built
 
 
 @pytest.fixture(scope="module")
@@ -65,8 +64,8 @@ def _run(tiny, cell, system=None):
                     root=root, bench_dir=bench)
 
 
-@pytest.mark.parametrize("cell", ["poisson1m.fused", "smooth262k.rhs3",
-                                  "smooth262k.flow"])
+@pytest.mark.parametrize("cell", ["poisson1m.fused", "poisson1m.fused3",
+                                  "smooth262k.rhs3", "smooth262k.flow"])
 def test_the_unbroken_program_is_correct(tiny, cell):
     r = _run(tiny, cell)
     assert r["correct"] and r["failed"] == 0, r["check"]
@@ -74,6 +73,8 @@ def test_the_unbroken_program_is_correct(tiny, cell):
 
 @pytest.mark.parametrize("cell,fault", [
     ("poisson1m.fused", "altered"),
+    ("poisson1m.fused3", "altered"),
+    ("poisson1m.fused3", "half"),
     ("smooth262k.rhs3", "altered"),
     ("smooth262k.rhs3", "half"),
     ("smooth262k.flow", "altered"),

@@ -19,13 +19,14 @@ def cut(cfg, nu=32, nv=16, n=2000):
 def tiny_root(tmp_path, nu=32, nv=16, lower_bound=64, n=2000):
     """A checkout-like root under ``tmp_path``: BENCHMARK.json's cells with
     each configuration's torus cut to ``nu`` x ``nv`` and each point cloud
-    to ``n`` points, small pools and samples, and the real metric
-    readers."""
+    to ``n`` points, small pools and samples, and the real traffic kinds
+    and metric readers."""
     root = pathlib.Path(tmp_path)
     bench = root / "benchmark"
     (bench / "configs").mkdir(parents=True)
     (bench / "traffic").mkdir()
     (bench / "metrics").symlink_to(BENCH / "metrics")
+    (bench / "kinds").symlink_to(BENCH / "kinds")
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     for c in spec["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
